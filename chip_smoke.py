@@ -21,6 +21,23 @@
    tests/test_torch_model.py; the card in bf16, the main path's dtype, by
    its labels and by each volume module against its fp32 CPU twin on the
    inputs the bf16 run gave it (``BF16_REL``).
+5. Train kernels: K3, the backward of ``ops.conv3d.conv3d`` (stride-1 dx
+   by K1, stride-2 dx and dw by library calls), at the 13 volume-conv
+   shapes at the train batch, and K4 ``gwc_volume_bwd`` at the main-path
+   shape, symmetric and positive, bf16 and fp32, against their plain
+   versions (and K4 also against autograd of the plain forward): errors,
+   device times of each part, bound, and for K3 the time of cuDNN's
+   backward (autograd of ``F.conv3d``) as a yardstick the port never calls.
+6. Train path: one US3D stage-2 train step at 1024x1024, batch 2, bf16
+   compute on fp32 master parameters, Adam lr 1e-3, seg + LRSC losses,
+   through ``train.init_state`` and ``train.make_train_step``, on one
+   seeded synthetic batch: 2 warm-up and 5 timed steps with the launch
+   counts of ``TRAIN_LAUNCHES`` per step, finite losses and gradients, and
+   parameters that moved.
+7. Train agreement: one fp32 step at 256x256 on the card against the same
+   step on the CPU (plain versions) from the same weights and batch: the
+   loss terms, the BN running statistics after the step and every gradient
+   (``TRAIN_BOUNDS``).
 
 Prints one JSON line of per-kernel numbers, then, last, the ``ok`` line.
 Exits non-zero (and prints no result) without a CUDA device or outside the
@@ -78,6 +95,24 @@ VOLUME_MODULES = ("hourglass_att", "classif_att_", "concat_stem", "hourglass", "
 # activations tens of times; a fault in a kernel (a wrong tap, channel or
 # mask) shows as an error of the order of the output itself.
 BF16_REL = 5e-2
+# The train path: batch per card, warm-up and timed steps, and the kernel
+# launches of one step (forward: 9 + 4 volume convs and the cost volume;
+# backward: a K1 dx for each stride-1 conv, K4 once).
+TRAIN_BATCH = 2
+TRAIN_WARM, TRAIN_TIMED = 2, 5
+TRAIN_LAUNCHES = {"K1-s1": 18, "K1-s2": 4, "K2": 1, "K3": 9, "K4": 1}
+# K4 at the main path's shape at the train batch: features [2, 128, 128, 256].
+K4_SHAPE = ((TRAIN_BATCH, 128, 128, 256), 32, 8)
+# The fp32 card step against the CPU step at 256x256 with every plane kept
+# by the top-k stages (topk = refine_topk = 32, the /4 plane count), so no
+# hard choice sits on the gradient's path: loss terms (relative), running
+# statistics (absolute), and ||card - CPU|| / ||CPU|| of the gradients per
+# top-level module and per leaf (leaves with a non-zero gradient).  Both
+# sides are fp32 and differ by summation order, which the untrained net
+# amplifies on the way to its gradient; a fault in a backward (a wrong tap,
+# flip, channel swap or mask) gives an error of the order of the gradient
+# itself.
+TRAIN_BOUNDS = dict(loss=1e-4, stats=1e-3, grad_module=0.05, grad_leaf=0.05)
 # ~25 ms of spinning at the H100's clock: longer than the host takes to
 # enqueue one timing loop.
 SPIN_CYCLES = 50_000_000
@@ -227,14 +262,21 @@ def stereo_pair(size: int, shift: int, seed: int):
 
 
 def counts(ops):
+    from semstereo_tpu_torch.ops.conv3d import conv3d_input_grad_s1
+
     return {"K1-s1": ops.conv3d_bn_act.launches_s1, "K1-s2": ops.conv3d_bn_act.launches_s2,
-            "K2": ops.gwc_volume_norm.launches}
+            "K2": ops.gwc_volume_norm.launches, "K3": conv3d_input_grad_s1.launches,
+            "K4": ops.gwc_volume_norm_bwd.launches}
 
 
 def reset_counts(ops):
+    from semstereo_tpu_torch.ops.conv3d import conv3d_input_grad_s1
+
     ops.conv3d_bn_act.launches_s1 = 0
     ops.conv3d_bn_act.launches_s2 = 0
     ops.gwc_volume_norm.launches = 0
+    conv3d_input_grad_s1.launches = 0
+    ops.gwc_volume_norm_bwd.launches = 0
 
 
 def run_path(ops, cpu_model, n_warm=2, n_timed=10):
@@ -253,7 +295,7 @@ def run_path(ops, cpu_model, n_warm=2, n_timed=10):
             times.append(1e3 * (time.perf_counter() - t0))
     launches = counts(ops)
     n = n_warm + n_timed
-    want = {"K1-s1": 9 * n, "K1-s2": 4 * n, "K2": n}
+    want = {"K1-s1": 9 * n, "K1-s2": 4 * n, "K2": n, "K3": 0, "K4": 0}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want} for {n} requests")
     disp, label = out["disp"][0], out["label_l"]
@@ -295,7 +337,7 @@ def card_run(ops, cpu_model, dtype, left, right, capture=()):
     torch.cuda.synchronize()
     for h in hooks:
         h.remove()
-    if counts(ops) != {"K1-s1": 9, "K1-s2": 4, "K2": 1}:
+    if counts(ops) != {"K1-s1": 9, "K1-s2": 4, "K2": 1, "K3": 0, "K4": 0}:
         raise AssertionError(f"{dtype} card run launches {counts(ops)}")
     return out, seen
 
@@ -335,6 +377,206 @@ def run_agreement(ops, cpu_model):
         raise AssertionError("card (bf16) and CPU runs disagree")
 
 
+def check_k3(gen, scrub):
+    """K3, the backward of ``conv3d``, at the 13 volume-conv shapes at the
+    train batch, both dtypes: y, dx and dw against ``conv3d_plain`` (fp32
+    ``F.conv3d`` and autograd), and the device time of each part."""
+    from semstereo_tpu_torch.ops import conv3d as c3
+
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        size = torch.finfo(dtype).bits // 8
+        for name, xs, f, s in K1_SHAPES:
+            xs = (TRAIN_BATCH, *xs[1:])
+            c = xs[-1]
+            x = torch.randn(xs, device="cuda", generator=gen).to(dtype).requires_grad_()
+            w = (torch.randn((f, c, 3, 3, 3), device="cuda", generator=gen)
+                 * (2.0 / (27 * c)) ** 0.5).to(dtype).requires_grad_()
+            y = c3.conv3d(x, w, s)
+            gy = torch.randn(y.shape, device="cuda", generator=gen).to(dtype)
+            dx, dw = torch.autograd.grad(y, (x, w), gy)
+            torch.cuda.synchronize()
+            y_p = c3.conv3d_plain(x, w, s)
+            dx_p, dw_p = torch.autograd.grad(y_p, (x, w), gy, retain_graph=True)
+            errs = {k: compare(a, b) for k, (a, b) in
+                    dict(y=(y, y_p), dx=(dx, dx_p), dw=(dw, dw_p)).items()}
+            if not all(rel <= REL_TOL[dtype] for _, rel in errs.values()):
+                raise AssertionError(f"K3 {name} {dtype}: {errs}")
+            xd, wd = x.detach(), w.detach()
+            w3 = wd.permute(2, 3, 4, 1, 0).contiguous()
+            if s == 1:
+                dx_ms = timed_ms(lambda: c3.conv3d_input_grad_s1(gy, w3), 10, scrub)
+                s2_ms = 0.0
+            else:
+                dx_ms = 0.0
+                s2_ms = timed_ms(lambda: c3.conv3d_input_grad_s2(gy, wd, xs[1:4]), 10, scrub)
+            dw_ms = timed_ms(lambda: c3.conv3d_weight_grad(xd, gy, s), 5, scrub)
+            plain_ms = timed_ms(
+                lambda: torch.autograd.grad(y_p, (x, w), gy, retain_graph=True), 3, scrub)
+            # cuDNN's backward in the working dtype on channels_last_3d tensors
+            x_l = xd.permute(0, 4, 1, 2, 3).detach().requires_grad_()
+            w_l = wd.contiguous(memory_format=torch.channels_last_3d).requires_grad_()
+            y_l = torch.nn.functional.conv3d(x_l, w_l, stride=s, padding=1)
+            gy_l = gy.permute(0, 4, 1, 2, 3)
+            library_ms = timed_ms(
+                lambda: torch.autograd.grad(y_l, (x_l, w_l), gy_l, retain_graph=True), 10, scrub)
+            m = y.numel() // f
+            flops = 2 * 2.0 * m * 27 * c * f  # dx and dw
+            nbytes = (2 * x.numel() + 2 * w.numel() + gy.numel()) * size
+            b_ms, b_by = bound_ms(nbytes, flops, dtype)
+            row = dict(
+                kernel="K3", name=name, dtype=str(dtype)[6:], shape=list(xs), F=f, stride=s,
+                max_abs_err=max(e for e, _ in errs.values()),
+                max_rel_err={k: r for k, (_, r) in errs.items()},
+                ms=dx_ms + s2_ms + dw_ms, dx_k1_ms=dx_ms, s2_dx_ms=s2_ms, dw_ms=dw_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                gflop=flops / 1e9,
+            )
+            log("kernel", json.dumps(row))
+            rows.append(row)
+            del x, w, y, gy, dx, dw, y_p, dx_p, dw_p, x_l, w_l, y_l
+    return rows
+
+
+def check_k4(ops, gen, scrub):
+    """K4 at the main path's shape: against the plain closed form and
+    against autograd of the plain forward."""
+    rows = []
+    (b, h, w, c), g, s = K4_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        size = torch.finfo(dtype).bits // 8
+        for symmetric in (True, False):
+            d = 2 * s if symmetric else s
+            left = torch.randn((b, h, w, c), device="cuda", generator=gen).to(dtype)
+            right = torch.randn((b, h, w, c), device="cuda", generator=gen).to(dtype)
+            gbar = torch.randn((b, d, h, w, g), device="cuda", generator=gen).to(dtype)
+            got = ops.gwc_volume_norm_bwd(left, right, gbar, s, g, symmetric)
+            torch.cuda.synchronize()
+            plain = ops.gwc_volume_norm_bwd_plain(left, right, gbar, s, g, symmetric)
+            lt, rt = left.clone().requires_grad_(), right.clone().requires_grad_()
+            auto = torch.autograd.grad(ops.gwc_volume_norm_plain(lt, rt, s, g, symmetric),
+                                       (lt, rt), gbar)
+            errs = [compare(a, p_) for a, p_ in zip(got, plain)]
+            errs_auto = [compare(a, p_) for a, p_ in zip(got, auto)]
+            if not all(rel <= REL_TOL[dtype] for _, rel in errs + errs_auto):
+                raise AssertionError(f"K4 symmetric={symmetric} {dtype}: {errs} {errs_auto}")
+            flops = 2 * 2.0 * d * b * h * w * c + 8.0 * 2 * b * h * w * c  # yl, yr; norm VJPs
+            nbytes = (4 * left.numel() + gbar.numel()) * size
+            b_ms, b_by = bound_ms(nbytes, flops, dtype)
+            row = dict(
+                kernel="K4", name="gwc_volume_bwd " + ("symmetric" if symmetric else "positive"),
+                dtype=str(dtype)[6:], shape=[b, h, w, c], G=g, D=d,
+                max_abs_err=max(e for e, _ in errs), max_rel_err=max(r for _, r in errs),
+                max_rel_err_autograd=max(r for _, r in errs_auto),
+                ms=timed_ms(lambda: ops.gwc_volume_norm_bwd(left, right, gbar, s, g, symmetric),
+                            20, scrub),
+                plain_ms=timed_ms(lambda: ops.gwc_volume_norm_bwd_plain(
+                    left, right, gbar, s, g, symmetric), 5, scrub),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            )
+            log("kernel", json.dumps(row))
+            rows.append(row)
+    return rows
+
+
+def run_train(ops):
+    """The train path at 1024x1024 through the port's entry points."""
+    from semstereo_tpu_torch.config import TRAIN_PRESETS
+    from semstereo_tpu_torch.data import SyntheticStereoDataset
+    from semstereo_tpu_torch.train import init_state, make_train_step
+
+    cfg = TRAIN_PRESETS["us3d_stage2"].replace(compute_dtype="bfloat16")
+    state = init_state(cfg)
+    start = [p.detach().clone() for p in state.model.parameters()]
+    batch = SyntheticStereoDataset(TRAIN_BATCH, 1024, 1024, cfg.model.maxdisp).batch(
+        0, TRAIN_BATCH, "cuda")
+    train_step = make_train_step(cfg)
+    n = TRAIN_WARM + TRAIN_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    times, scalars = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        out = train_step(state, batch)
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARM:
+            times.append(1e3 * (time.perf_counter() - t0))
+        scalars.append({k: v.item() for k, v in out.items()})
+    launches = counts(ops)
+    want = {k: v * n for k, v in TRAIN_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"train launches {launches}, expected {want} for {n} steps")
+    params = list(state.model.parameters())
+    if not all(np.isfinite(v) for sc in scalars for v in sc.values()):
+        raise AssertionError(f"non-finite train scalars {scalars}")
+    if not all(torch.isfinite(p.grad).all() for p in params):
+        raise AssertionError("non-finite gradients")
+    moved = sum(not torch.equal(p.detach(), p0) for p, p0 in zip(params, start))
+    if moved < len(params) // 2:
+        raise AssertionError(f"only {moved} of {len(params)} parameter tensors moved")
+    mean_ms = statistics.mean(times)
+    res = dict(size=1024, batch=TRAIN_BATCH, dtype="bfloat16", steps=n, timed=TRAIN_TIMED,
+               ms_per_step_median=statistics.median(times), ms_per_step_mean=mean_ms,
+               ms_min=min(times), ms_max=max(times), pairs_per_s=1e3 * TRAIN_BATCH / mean_ms,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches, launches_per_step={k: v // n for k, v in launches.items()},
+               params_moved=moved, params=len(params),
+               loss=[sc["loss"] for sc in scalars], epe=[sc["EPE"] for sc in scalars])
+    log("train", json.dumps(res))
+    return res
+
+
+def run_train_agreement(ops):
+    """One fp32 train step at 256x256 on the card against the same step on
+    the CPU, from the same weights and batch (see ``TRAIN_BOUNDS``)."""
+    from semstereo_tpu_torch.config import ModelConfig, TrainConfig
+    from semstereo_tpu_torch.data import SyntheticStereoDataset
+    from semstereo_tpu_torch.models import build_model
+    from semstereo_tpu_torch.train import make_grads_fn
+
+    cfg = TrainConfig(model=ModelConfig(maxdisp=64, topk=32, refine_topk=32))
+    cpu_model = build_model(cfg.model, device="cpu", seed=2).train()
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    batch = SyntheticStereoDataset(2, 256, 256, cfg.model.maxdisp).batch(0, 2)
+    grads_fn = make_grads_fn(cfg)
+    reset_counts(ops)
+    aux_card, _, _ = grads_fn(card_model, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = counts(ops)
+    if launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"fp32 card train step launches {launches}")
+    aux_cpu, _, _ = grads_fn(cpu_model, batch)
+    loss_rel = {k: abs(aux_card[k].item() - v.item()) / abs(v.item()) for k, v in aux_cpu.items()}
+    stats = {n: (b.cpu() - c).abs().max().item()
+             for (n, b), c in zip(card_model.named_buffers(), cpu_model.buffers())}
+    pairs = [(n, p.grad.cpu().double(), q.grad.double())
+             for (n, p), q in zip(card_model.named_parameters(), cpu_model.parameters())]
+    total = sum(float(q.square().sum()) for _, _, q in pairs) ** 0.5
+    err, norm, leaf = {}, {}, {}
+    for n, p, q in pairs:
+        qn = float(q.norm())
+        if qn <= 1e-6 * total:  # a zero gradient (bias before a BN): rounding noise
+            continue
+        leaf[n] = float((p - q).norm()) / qn
+        m = n.split(".")[0]
+        err[m] = err.get(m, 0.0) + float((p - q).square().sum())
+        norm[m] = norm.get(m, 0.0) + qn * qn
+    module = {m: (err[m] / norm[m]) ** 0.5 for m in norm}
+    worst_leaf = max(leaf, key=leaf.get)
+    res = dict(size=256, dtype="float32", launches=launches, loss_rel=loss_rel,
+               stats_max_abs=max(stats.values()), stats_worst=max(stats, key=stats.get),
+               grad_module_rel=module, grad_leaf_rel_max=leaf[worst_leaf],
+               grad_leaf_worst=worst_leaf,
+               grad_leaf_rel_median=statistics.median(leaf.values()), leaves=len(leaf))
+    log("train_agreement", json.dumps(res))
+    b = TRAIN_BOUNDS
+    if not (max(loss_rel.values()) <= b["loss"] and max(stats.values()) <= b["stats"]
+            and max(module.values()) <= b["grad_module"]
+            and leaf[worst_leaf] <= b["grad_leaf"]):
+        raise AssertionError("the fp32 card train step and the CPU step disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("no CUDA device: the port's kernels and main path run on the card")
@@ -355,11 +597,15 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     scrub = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rows = check_k1(ops, gen, scrub) + check_k2(ops, gen, scrub)
+    rows += check_k3(gen, scrub) + check_k4(ops, gen, scrub)
     del scrub
 
     cpu_model = seeded_model(PRESETS["us3d_stage2"], seed=0)
     path = run_path(ops, cpu_model)
     run_agreement(ops, cpu_model)
+    del cpu_model
+    train = run_train(ops)
+    run_train_agreement(ops)
 
     kernels = []
     meta = {
@@ -369,24 +615,38 @@ def main() -> int:
                   "semstereo_tpu/ops/pallas/conv3d_wl.py:276"),
         "K2": ("semstereo_tpu_torch/csrc/gwc_volume.cu",
                "semstereo_tpu/ops/pallas/cost_volume_kernel.py:150"),
+        "K3": ("semstereo_tpu_torch/csrc/conv3d.cu",
+               "semstereo_tpu/ops/pallas/conv3d_wl.py:346"),
+        "K4": ("semstereo_tpu_torch/csrc/gwc_volume_bwd.cu",
+               "semstereo_tpu/ops/pallas/cost_volume_kernel.py:280"),
     }
     for name, (source, replaces) in meta.items():
-        # one request's worth: every main-path shape of the kernel, path dtype
+        # one request's or step's worth: every main-path shape of the
+        # kernel, path dtype (K1/K2 at the eval batch, K3/K4 at the train one)
         mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
-        if name == "K2":
+        if name in ("K2", "K4"):
             mine = [r for r in mine if r["name"].endswith("symmetric")]
         lib = [r["library_ms"] for r in mine]
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=path["launches"][name],
-            launches_per_request=path["launches_per_request"][name],
+            launches=(train if name in ("K3", "K4") else path)["launches"][name],
+            launches_eval=path["launches"][name], launches_train=train["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=sum(r["ms"] for r in mine), plain_ms=sum(r["plain_ms"] for r in mine),
             bound_ms=sum(r["bound_ms"] for r in mine),
             bound_by=max(("bytes", "operations"), key=lambda by: sum(
                 r["bound_ms"] for r in mine if r["bound_by"] == by)),
             library_ms=None if None in lib else sum(lib),
-        ))
+        )
+        if name == "K3":
+            # only the stride-1 dx is a hand-written kernel (K1); the JAX
+            # package computes the stride-2 dx and dw as XLA ops, and so
+            # does the port with library calls
+            entry["route_parts"] = {"dx_k1_ms": "cuda, csrc/conv3d.cu (K1)",
+                                    "s2_dx_ms": "library, F.conv_transpose3d",
+                                    "dw_ms": "library, torch.matmul"}
+            entry.update({k: sum(r[k] for r in mine) for k in ("dx_k1_ms", "s2_dx_ms", "dw_ms")})
+        kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

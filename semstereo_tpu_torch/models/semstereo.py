@@ -1,4 +1,4 @@
-"""SemStereo, eval forward (counterpart of
+"""SemStereo, train and eval forward (counterpart of
 ``semstereo_tpu/models/semstereo.py``).
 
 Layouts: images [B, H, W, C]; volumes [B, D, H, W, C]; hypothesis maps
@@ -7,10 +7,15 @@ Layouts: images [B, H, W, C]; volumes [B, D, H, W, C]; hypothesis maps
 ``classif_att_.2.weight``, ...), which ``convert.py`` and the JAX package's
 ``utils/torch_convert.py`` both read.
 
-Eval output (dict): ``disp = (pred_up * 4,)`` (``pred_att_up`` in stage 1,
-``att_weights_only``) of shape [B, H, W]; ``label_l``/``label_r``
-[B, H, W, num_classes] logits when ``seg_if``.  The two views go through the
-shared front end in two passes.  Train mode is not ported yet.
+Output (dict), each disparity [B, H, W]:
+  train, stage 2:  disp = (pred_up*4, pred*4, pred_att_up*4, pred_att*4)
+  train, stage 1:  disp = (pred_att_up*4, pred_att*4)  (``att_weights_only``)
+  eval:            disp = (pred_up*4,)  [or pred_att_up in stage 1]
+  seg_if adds      label_l, label_r: [B, H, W, num_classes] logits.
+The two views go through the shared front end in two passes, left then
+right; in train mode each pass normalises with its own batch statistics and
+moves the running statistics in turn, as flax's mutable ``batch_stats``
+does.  Eval runs under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -135,12 +140,15 @@ class SemStereo(nn.Module):
     def _chal(self, i, x):
         return getattr(self, f"chal_{i}")(x)
 
-    @torch.inference_mode()
     def forward(self, left, right):
         """left, right [B, H, W, 3] -> dict (see the module docstring)."""
         if self.training:
-            raise NotImplementedError("the port runs eval only (call .eval()); "
-                                      "train mode is not ported yet")
+            return self._forward(left, right)
+        with torch.inference_mode():
+            return self._forward(left, right)
+
+    def _forward(self, left, right):
+        train = self.training
         feat_l = self.feature_up(self.feature(left))
         feat_r = self.feature_up(self.feature(right))
         out = {}
@@ -195,24 +203,34 @@ class SemStereo(nn.Module):
         att_topk, att_raw, samples = topk_planes(att_weights, k, self.symmetric)
         att_prob = torch.softmax(att_raw, dim=1)
         pred_att = torch.sum(att_prob * samples, dim=1)
+        if self.att_weights_only or train:
+            pred_att_up = self.ssr_upsample(pred_att[..., None], spx_pred, pred_label)
         if self.att_weights_only:
-            pred = self.ssr_upsample(pred_att[..., None], spx_pred, pred_label)
-            out["disp"] = (pred * 4,)
+            out["disp"] = (pred_att_up * 4, pred_att * 4) if train else (pred_att_up * 4,)
             return out
 
         # stage 2: top-k sampled concat volume at /4
         lc = self.concat_feature(fl[1])
         rc = self.concat_feature(fr1)
         warped_rc, tiled_lc = warp_with_left(lc, rc, samples)
-        # att * concat(tiled left, warped right), written in place: [B, K, H4, W4, 64]
-        c = lc.shape[-1]
-        volume = torch.empty((*warped_rc.shape[:-1], 2 * c), dtype=lc.dtype, device=lc.device)
-        torch.mul(att_topk[..., None], tiled_lc, out=volume[..., :c])
-        torch.mul(att_topk[..., None], warped_rc, out=volume[..., c:])
+        # att * concat(tiled left, warped right): [B, K, H4, W4, 64]; eval
+        # writes it in place, which autograd cannot follow
+        if train:
+            volume = att_topk[..., None] * torch.cat([tiled_lc, warped_rc], dim=-1)
+        else:
+            c = lc.shape[-1]
+            volume = torch.empty((*warped_rc.shape[:-1], 2 * c), dtype=lc.dtype,
+                                 device=lc.device)
+            torch.mul(att_topk[..., None], tiled_lc, out=volume[..., :c])
+            torch.mul(att_topk[..., None], warped_rc, out=volume[..., c:])
         volume = self.concat_stem(volume)
         volume = self.concat_feature_att_4(volume, fl[1])
         cost = self.hourglass(volume)
         cost = self.classif(cost)[..., 0]
         pred = regression_topk(cost, samples, self.refine_topk)
-        out["disp"] = (self.ssr_upsample(pred[..., None], spx_pred, pred_label) * 4,)
+        pred_up = self.ssr_upsample(pred[..., None], spx_pred, pred_label)
+        if train:
+            out["disp"] = (pred_up * 4, pred * 4, pred_att_up * 4, pred_att * 4)
+        else:
+            out["disp"] = (pred_up * 4,)
         return out

@@ -1,12 +1,21 @@
-"""3x3x3 pad-1 volume convolution with a per-channel affine and optional
-ReLU: the eval ``BasicConv(dims=3)`` with BatchNorm folded.
+"""3x3x3 pad-1 volume convolution.
 
-Counterpart of ``semstereo_tpu/ops/pallas/conv3d_wl.py::conv3d_wl_affine``
-(the TPU kernels ``_fwd_s1`` and ``_fwd_s2``).  On a CUDA tensor
-``conv3d_bn_act`` launches the hand-written Hopper kernel ``csrc/conv3d.cu``
-(note there on what bounds it and what its design does about that); on a
-CPU tensor it runs ``conv3d_bn_act_plain``, the same function in plain
-PyTorch, which the tests and ``chip_smoke.py`` hold the kernel against.
+* ``conv3d_bn_act``: the conv with a per-channel affine and optional ReLU,
+  the eval ``BasicConv(dims=3)`` with BatchNorm folded.  Counterpart of
+  ``semstereo_tpu/ops/pallas/conv3d_wl.py::conv3d_wl_affine`` (the TPU
+  kernels ``_fwd_s1`` and ``_fwd_s2``).  On a CUDA tensor it launches the
+  hand-written Hopper kernel ``csrc/conv3d.cu`` (K1; its note says what
+  bounds it and what its design does about that); on a CPU tensor it runs
+  ``conv3d_bn_act_plain``, the same function in plain PyTorch, which the
+  tests and ``chip_smoke.py`` hold the kernel against.
+* ``conv3d``: the differentiable conv of the train graph, counterpart of
+  ``conv3d_wl.conv3d_wl`` and its VJP (``_vjp_fwd``/``_vjp_bwd``).  Its
+  forward is K1 with scale 1 and bias 0; its backward follows ``_vjp_bwd``:
+  the ReLU mask from the saved output, the stride-1 dx as K1 on the output
+  gradient with the flipped, channel-swapped weight, the stride-2 dx as the
+  k3 s2 p1 transposed conv and dw as 27 tap contractions (both left to
+  library calls, as the JAX package leaves them to XLA).  ``conv3d_plain``
+  (fp32 ``F.conv3d`` and autograd) is its yardstick.
 """
 
 from __future__ import annotations
@@ -97,3 +106,123 @@ def conv3d_bn_act(x, w, scale, bias, stride: int = 1, relu: bool = False):
 # main path went through the kernel.
 conv3d_bn_act.launches_s1 = 0
 conv3d_bn_act.launches_s2 = 0
+
+
+# --- the differentiable conv of the train graph ------------------------------
+
+
+def conv3d_plain(x, w, stride: int = 1, relu: bool = False):
+    """Plain PyTorch version of ``conv3d``: fp32 ``F.conv3d`` with autograd,
+    cast to x's dtype.  x [B,D,H,W,C], w [F,C,3,3,3] -> [B,OD,OH,OW,F]."""
+    y = F.conv3d(x.float().permute(0, 4, 1, 2, 3), w.float(), stride=stride, padding=1)
+    y = y.permute(0, 2, 3, 4, 1)
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype)
+
+
+def conv3d_input_grad_s1(gy, w3):
+    """dx of the stride-1 conv: the stride-1 conv of gy with the flipped,
+    channel-swapped weight, through ``conv3d_bn_act`` (K1 on the card).
+    gy [B,D,H,W,F], w3 [3,3,3,C,F] -> [B,D,H,W,C].  The bf16 kernel takes
+    C % 8 == 0, so a narrow gy (the F=1 classifier conv) and the weight
+    are zero-padded to 8 channels."""
+    wflip = torch.flip(w3, (0, 1, 2)).transpose(3, 4)  # [3,3,3,F,C]
+    f = gy.shape[-1]
+    pad = -f % 8 if gy.dtype == torch.bfloat16 else 0
+    if pad:
+        gy = F.pad(gy, (0, pad))
+        wflip = F.pad(wflip, (0, 0, 0, pad))
+    c = w3.shape[3]
+    ones = torch.ones(c, dtype=torch.float32, device=gy.device)
+    dx = conv3d_bn_act(gy.contiguous(), wflip.contiguous(), ones, torch.zeros_like(ones), 1)
+    if dx.is_cuda:
+        conv3d_input_grad_s1.launches += 1
+    return dx
+
+
+# K1 launches made for a stride-1 dx (each also counted in
+# conv3d_bn_act.launches_s1); the smoke run reads it to show that the train
+# path's backward went through the kernel.
+conv3d_input_grad_s1.launches = 0
+
+
+def conv3d_input_grad_s2(gy, w, in_dims):
+    """dx of the stride-2 conv: the k3 s2 p1 transposed conv of gy, with
+    the output padding that restores ``in_dims`` (D, H, W).  gy
+    [B,OD,OH,OW,F], w [F,C,3,3,3] -> [B,D,H,W,C]."""
+    op = tuple(n - (2 * o - 1) for n, o in zip(in_dims, gy.shape[1:4]))
+    dx = F.conv_transpose3d(gy.permute(0, 4, 1, 2, 3), w, stride=2, padding=1,
+                            output_padding=op)
+    return dx.permute(0, 2, 3, 4, 1)
+
+
+def conv3d_weight_grad(x, gy, stride: int):
+    """dw [3,3,3,C,F]: for each of the 27 taps, the [C, M] x [M, F]
+    contraction of the input voxels the tap reads with gy.
+
+    Every tap is one matrix product on contiguous row ranges, with no copy
+    per tap: x is zero-padded and split into its stride**3 phases (for
+    stride 2, phase (pd, ph, pw) holds the padded voxels of that parity),
+    each flattened over a grid G = (OD, OH, OW) + (3 - stride), and gy is
+    placed at the origin of the same grid with zeros around it.  Tap k
+    reads phase k % stride at grid offset k // stride, so its input rows
+    are the flat rows ``off .. off + n`` of its phase, where ``off`` is
+    that offset flattened; the zero rows of gy cancel the rows that wrap
+    across a grid edge."""
+    b, d, h, w, c = x.shape
+    _, od, oh, ow, f = gy.shape
+    s = stride
+    g = [o + 3 - s for o in (od, oh, ow)]
+    xp = F.pad(x, (0, 0, 1, s * g[2] - w - 1, 1, s * g[1] - h - 1, 1, s * g[0] - d - 1))
+    phases = xp.reshape(b, g[0], s, g[1], s, g[2], s, c).permute(2, 4, 6, 0, 1, 3, 5, 7)
+    phases = phases.reshape(s, s, s, -1, c)  # a view at stride 1, a copy at 2
+    gp = gy.new_zeros((b, *g, f))
+    gp[:, :od, :oh, :ow] = gy
+    gflat = gp.reshape(-1, f)
+    k = 2 // s  # the largest grid offset
+    n = gflat.shape[0] - (k * g[1] + k) * g[2] - k
+    taps = []
+    for kd in range(3):
+        for kh in range(3):
+            for kw in range(3):
+                off = ((kd // s) * g[1] + kh // s) * g[2] + kw // s
+                a = phases[kd % s, kh % s, kw % s, off:off + n]
+                taps.append(torch.matmul(a.t(), gflat[:n]))
+    return torch.stack(taps).reshape(3, 3, 3, c, f)
+
+
+class _Conv3d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, stride, relu):
+        w3 = w.permute(2, 3, 4, 1, 0).contiguous()  # [3,3,3,C,F]
+        ones = torch.ones(w.shape[0], dtype=torch.float32, device=x.device)
+        y = conv3d_bn_act(x.contiguous(), w3, ones, torch.zeros_like(ones), stride, relu)
+        ctx.stride, ctx.relu = stride, relu
+        ctx.save_for_backward(x, w, w3, y if relu else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, w3, y = ctx.saved_tensors
+        if ctx.relu:
+            gy = torch.where(y > 0, gy, 0)
+        gy = gy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            if ctx.stride == 1:
+                dx = conv3d_input_grad_s1(gy, w3)
+            else:
+                dx = conv3d_input_grad_s2(gy, w, x.shape[1:4])
+        if ctx.needs_input_grad[1]:
+            dw = conv3d_weight_grad(x, gy, ctx.stride).permute(4, 3, 0, 1, 2).to(w.dtype)
+        return dx, dw, None, None
+
+
+def conv3d(x, w, stride: int = 1, relu: bool = False):
+    """Differentiable 3x3x3 pad-1 conv, [relu](conv3d(x, w, stride)).
+    x [B,D,H,W,C]; w [F,C,3,3,3] (torch layout, so that its gradient lands
+    on the ``nn.Conv3d`` weight) -> [B,OD,OH,OW,F] in x's dtype."""
+    if w.dim() != 5 or tuple(w.shape[2:]) != (3, 3, 3):
+        raise ValueError(f"conv3d: weight {tuple(w.shape)} is not [F,C,3,3,3]")
+    return _Conv3d.apply(x, w, stride, relu)

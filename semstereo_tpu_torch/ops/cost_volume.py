@@ -6,11 +6,13 @@ shift ``d - max_shift`` (symmetric) or ``d`` (positive):
 ``vol[b,d,h,x,g] = mean_c ln[b,h,x,g,c] * rn[b,h,x-s,g,c]`` for in-range
 ``x - s``, else 0.
 
-On a CUDA tensor ``gwc_volume_norm`` launches the Hopper kernel
-``csrc/gwc_volume.cu`` (which replaces the TPU kernel
-``semstereo_tpu/ops/pallas/cost_volume_kernel.py::_forward``; its note says
-what bounds it and what the design does about that).  On a CPU tensor it
-runs ``gwc_volume_norm_plain``.
+``gwc_volume_norm`` is differentiable.  On CUDA tensors its forward
+launches the Hopper kernel ``csrc/gwc_volume.cu`` (K2, which replaces the
+TPU kernel ``semstereo_tpu/ops/pallas/cost_volume_kernel.py::_forward``)
+and its backward ``csrc/gwc_volume_bwd.cu`` (K4, which replaces ``_bwd``);
+each note says what bounds the kernel and what its design does about that.
+On CPU tensors they run ``gwc_volume_norm_plain`` and
+``gwc_volume_norm_bwd_plain``.
 """
 
 from __future__ import annotations
@@ -61,6 +63,39 @@ def gwc_volume_norm_plain(left, right, max_shift: int, num_groups: int,
     return torch.stack(planes, dim=1).to(left.dtype)
 
 
+def gwc_volume_norm_bwd_plain(left, right, gbar, max_shift: int, num_groups: int,
+                              symmetric: bool = True):
+    """Both input cotangents of ``gwc_volume_norm``, in closed form in fp32,
+    cast to the input dtype.  With u, v the group-normalised left and right
+    and cpg = C/G channels per group: yl = sum_d gbar_d/cpg * v[x - s_d],
+    yr = sum_d gbar_d[x + s_d]/cpg * u[x + s_d] over the valid columns, then
+    the VJP of x -> x/(|x|_g + eps), y/(n+eps) - x (x.y)/(n (n+eps)^2) with
+    n clamped at 1e-30.  left, right [B,H,W,C], gbar [B,D,H,W,G] -> two
+    [B,H,W,C]."""
+    b, h, w, c = left.shape
+    g, eps = num_groups, 1e-5
+    cpg = c // g
+    x_l = left.float().reshape(b, h, w, g, cpg)
+    x_r = right.float().reshape(b, h, w, g, cpg)
+    n_l = torch.sqrt(torch.sum(torch.square(x_l), dim=-1, keepdim=True))
+    n_r = torch.sqrt(torch.sum(torch.square(x_r), dim=-1, keepdim=True))
+    u, v = x_l / (n_l + eps), x_r / (n_r + eps)
+    gb = gbar.float()[..., None] / cpg  # [B, D, H, W, G, 1]
+    y_l, y_r = torch.zeros_like(u), torch.zeros_like(v)
+    lo, d = shift_range(max_shift, symmetric)
+    for k, s in enumerate(range(lo, lo + d)):
+        a, e = max(s, 0), w + min(s, 0)  # columns x with x - s in the image
+        if a < e:
+            y_l[:, :, a:e] += gb[:, k, :, a:e] * v[:, :, a - s:e - s]
+            y_r[:, :, a - s:e - s] += gb[:, k, :, a:e] * u[:, :, a:e]
+
+    def norm_vjp(x, n, y):
+        coef = torch.sum(x * y, dim=-1, keepdim=True) / (n.clamp_min(1e-30) * (n + eps) ** 2)
+        return (y / (n + eps) - x * coef).reshape(b, h, w, c)
+
+    return (norm_vjp(x_l, n_l, y_l).to(left.dtype), norm_vjp(x_r, n_r, y_r).to(right.dtype))
+
+
 def _lib():
     lib = _build.load("gwc_volume")
     fn = lib.gwc_volume
@@ -70,25 +105,45 @@ def _lib():
     return lib
 
 
-def gwc_volume_norm(left, right, max_shift: int, num_groups: int,
-                    symmetric: bool = True) -> torch.Tensor:
-    """Cosine group-wise correlation volume; see the module docstring."""
+def _lib_bwd():
+    lib = _build.load("gwc_volume_bwd")
+    if lib.gwc_volume_bwd.argtypes is None:
+        lib.gwc_volume_bwd.argtypes = [_P, _P, _P, _P, _P] + [_I] * 8 + [_P]
+        lib.gwc_volume_bwd.restype = ctypes.c_int
+        lib.gwc_volume_bwd_smem.argtypes = [_I] * 4
+        lib.gwc_volume_bwd_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def _check(left, right, num_groups):
     if left.dim() != 4 or left.shape != right.shape:
         raise ValueError(f"gwc_volume_norm: left {tuple(left.shape)}, right "
                          f"{tuple(right.shape)} (takes two equal [B,H,W,C])")
     if left.shape[3] % num_groups:
         raise ValueError(f"{left.shape[3]} channels do not split into {num_groups} groups")
+
+
+def _check_cuda(what, *ts):
+    left = ts[0]
+    if left.device.type != "cuda" or any(t.device != left.device for t in ts):
+        raise ValueError(f"{what}: no kernel for {[str(t.device) for t in ts]}")
+    if left.dtype not in _DTYPES or any(t.dtype != left.dtype for t in ts):
+        raise TypeError(f"{what}: {[t.dtype for t in ts]} (takes float32 or bfloat16, alike)")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    c = left.shape[3]
+    if c * left.element_size() % 16:
+        raise ValueError(f"{what}: kernel takes C filling 16-byte chunks, got C={c}")
+
+
+def gwc_volume_norm_fwd(left, right, max_shift: int, num_groups: int,
+                        symmetric: bool = True) -> torch.Tensor:
+    """The forward alone: K2 on CUDA tensors, the plain version on CPU ones."""
+    _check(left, right, num_groups)
     if left.device.type == "cpu":
         return gwc_volume_norm_plain(left, right, max_shift, num_groups, symmetric)
-    if left.device.type != "cuda" or right.device != left.device:
-        raise ValueError(f"gwc_volume_norm: no kernel for {left.device} / {right.device}")
-    if left.dtype not in _DTYPES or right.dtype != left.dtype:
-        raise TypeError(f"gwc_volume_norm: {left.dtype}/{right.dtype} (takes float32 or bfloat16)")
-    if not (left.is_contiguous() and right.is_contiguous()):
-        raise ValueError("gwc_volume_norm: left and right must be contiguous")
+    _check_cuda("gwc_volume_norm", left, right)
     b, h, w, c = left.shape
-    if c * left.element_size() % 16:
-        raise ValueError(f"gwc_volume_norm: kernel takes C filling 16-byte chunks, got C={c}")
     lo, d = shift_range(max_shift, symmetric)
     out = torch.empty((b, d, h, w, num_groups), dtype=left.dtype, device=left.device)
     err = _lib().gwc_volume(
@@ -100,6 +155,59 @@ def gwc_volume_norm(left, right, max_shift: int, num_groups: int,
     return out
 
 
-# Kernel launches; the smoke run reads it to show that the main path went
-# through the kernel.
+def gwc_volume_norm_bwd(left, right, gbar, max_shift: int, num_groups: int,
+                        symmetric: bool = True):
+    """(d left, d right) of ``gwc_volume_norm`` for the volume's cotangent
+    ``gbar`` [B,D,H,W,G]: K4 on CUDA tensors, the plain closed form on CPU
+    ones."""
+    _check(left, right, num_groups)
+    lo, d = shift_range(max_shift, symmetric)
+    b, h, w, c = left.shape
+    if tuple(gbar.shape) != (b, d, h, w, num_groups):
+        raise ValueError(f"gwc_volume_norm_bwd: gbar {tuple(gbar.shape)}, expected "
+                         f"{(b, d, h, w, num_groups)}")
+    if left.device.type == "cpu":
+        return gwc_volume_norm_bwd_plain(left, right, gbar, max_shift, num_groups, symmetric)
+    _check_cuda("gwc_volume_norm_bwd", left, right, gbar)
+    lib = _lib_bwd()
+    smem = lib.gwc_volume_bwd_smem(c, num_groups, d, _DTYPES[left.dtype])
+    limit = torch.cuda.get_device_properties(left.device).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"gwc_volume_norm_bwd: C={c}, G={num_groups}, D={d} needs {smem} "
+                         f"bytes of shared memory, the card has {limit}")
+    gl, gr = torch.empty_like(left), torch.empty_like(right)
+    err = lib.gwc_volume_bwd(
+        left.data_ptr(), right.data_ptr(), gbar.data_ptr(), gl.data_ptr(), gr.data_ptr(),
+        b, h, w, c, num_groups, lo, d, _DTYPES[left.dtype],
+        torch.cuda.current_stream(left.device).cuda_stream,
+    )
+    _build.check(err, "gwc_volume_norm_bwd")
+    gwc_volume_norm_bwd.launches += 1
+    return gl, gr
+
+
+class _GwcVolumeNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, left, right, max_shift, num_groups, symmetric):
+        ctx.args = (max_shift, num_groups, symmetric)
+        ctx.save_for_backward(left, right)
+        return gwc_volume_norm_fwd(left, right, max_shift, num_groups, symmetric)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        left, right = ctx.saved_tensors
+        gl, gr = gwc_volume_norm_bwd(left, right, gbar.contiguous(), *ctx.args)
+        return gl, gr, None, None, None
+
+
+def gwc_volume_norm(left, right, max_shift: int, num_groups: int,
+                    symmetric: bool = True) -> torch.Tensor:
+    """Cosine group-wise correlation volume, differentiable in both inputs;
+    see the module docstring."""
+    return _GwcVolumeNorm.apply(left, right, max_shift, num_groups, symmetric)
+
+
+# Kernel launches of K2 and K4; the smoke run reads them to show that the
+# main path went through the kernels.
 gwc_volume_norm.launches = 0
+gwc_volume_norm_bwd.launches = 0

@@ -35,6 +35,14 @@ def disparity_variance(prob: torch.Tensor, disparity: torch.Tensor,
     return torch.sum(prob * sq, dim=1)
 
 
+def _topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries along the last axis, in descending
+    order with equal entries by ascending index, as ``lax.top_k`` gives
+    them (``torch.topk`` breaks ties in another order; ``lax.top_k`` also
+    puts -0.0 below +0.0, which this does not)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
 def topk_planes(weights: torch.Tensor, k: int, symmetric: bool):
     """The k highest-weight disparity planes per pixel.
 
@@ -49,8 +57,7 @@ def topk_planes(weights: torch.Tensor, k: int, symmetric: bool):
     if k > d:
         raise ValueError(f"top-{k} of {d} planes")
     raw_l = weights.movedim(1, -1)  # [B, H, W, D]
-    ind = torch.topk(raw_l, k, dim=-1).indices
-    ind = torch.sort(ind, dim=-1).values
+    ind = torch.sort(_topk_indices(raw_l, k), dim=-1).values
     topk_raw = torch.gather(raw_l, -1, ind)
     lse = torch.logsumexp(raw_l, dim=-1, keepdim=True)
     topk_prob = torch.exp(topk_raw - lse)
@@ -66,7 +73,8 @@ def regression_topk(cost: torch.Tensor, disparity_samples: torch.Tensor,
     cost, disparity_samples [B, D, H, W] -> [B, H, W]."""
     cost_l = cost.movedim(1, -1)
     samp_l = disparity_samples.movedim(1, -1)
-    topv, ind = torch.topk(cost_l, k, dim=-1)
+    ind = _topk_indices(cost_l, k)
+    topv = torch.gather(cost_l, -1, ind)
     prob = torch.softmax(topv, dim=-1)
     samp = torch.gather(samp_l, -1, ind)
     return torch.sum(prob * samp, dim=-1)

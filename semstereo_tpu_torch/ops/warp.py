@@ -71,3 +71,13 @@ def warp_with_left(left: torch.Tensor, right: torch.Tensor, disp_samples: torch.
     warped = disparity_warp(right, disp_samples)
     left_tiled = left[:, None].expand(-1, disp_samples.shape[1], -1, -1, -1)
     return warped, left_tiled
+
+
+def lrsc_label_warp(label: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
+    """Integer-gather warp of the left label map to the right view: column
+    clip(x - d, 0, W - 1), truncated to int.  label [B, H, W] class ids,
+    disp [B, H, W] -> [B, H, W]; no gradient flows through the index."""
+    w = label.shape[2]
+    xs = torch.arange(w, dtype=torch.float32, device=disp.device) - disp.detach().float()
+    xi = torch.clamp(xs, 0.0, float(w - 1)).to(torch.int64)
+    return torch.gather(label, 2, xi)

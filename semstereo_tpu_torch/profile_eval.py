@@ -3,11 +3,13 @@
     python3 -m semstereo_tpu_torch.profile_eval [--out DIR]
 
 Runs SemStereo US3D stage 2 (bf16, B=1, 1024x1024, maxdisp 64, seeded random
-weights) on an integer-shift pair: 3 warm-up requests, then
-``torch.profiler`` over 3 requests.  Prints one JSON line with the wall time per request, the device
-busy time per request (the union of kernel intervals on the card), its idle
-share, and the device time per request of the 25 costliest kernels and of
-the groups they fall in.  The Chrome trace goes to ``DIR/trace.json``.
+weights) on an integer-shift pair: 3 warm-up requests, 5 timed without the
+profiler, then ``torch.profiler`` over 3 requests.  Prints one JSON line
+with, per request (the ``_per_run`` keys), the wall time with and without
+the profiler, the device busy time (the union of kernel intervals on the
+card), its idle share against each wall time, the kernel launches, and the
+device time of the 25 costliest kernels and of the groups they fall in.
+The Chrome trace goes to ``DIR/trace.json``.
 """
 
 from __future__ import annotations
@@ -26,11 +28,13 @@ from semstereo_tpu_torch.models import build_model
 
 SIZE = 1024  # the main path's tile
 REQUESTS = 3  # profiled requests, after as many warm-up ones
+TIMED = 5  # unprofiled runs timed before the profiled ones
 
 # substrings of kernel names -> group (first match wins)
 GROUPS = [
     ("conv3d_halo_kernel", "K1 conv3d (hand, tensor cores)"),
     ("conv3d_kernel", "K1 conv3d (hand, CUDA cores)"),
+    ("gwc_volume_bwd_kernel", "K4 gwc_volume_bwd (hand)"),
     ("gwc_volume_kernel", "K2 gwc_volume (hand)"),
     ("conv", "cuDNN conv/deconv"),
     ("gemm", "matmul (cuBLAS)"),
@@ -88,14 +92,33 @@ def main() -> int:
         model(left, right)
     torch.cuda.synchronize()
 
+    summary = profiled(lambda: model(left, right), REQUESTS, args.out)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "size": SIZE,
+                      "requests": REQUESTS, **summary}))
+    return 0
+
+
+def profiled(fn, n: int, out_dir: str) -> dict:
+    """Run ``fn`` ``TIMED`` times without the profiler, then ``n`` times
+    under ``torch.profiler``; the Chrome trace goes to ``out_dir/trace.json``.
+    Returns, per run: the wall time with and without the profiler, the
+    device busy time (the union of kernel intervals), its idle share against
+    either wall time, the kernel launches, and the device time of the kernel
+    groups and of the 25 costliest kernels."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED):
+        fn()
+    torch.cuda.synchronize()
+    plain_wall_ms = 1e3 * (time.perf_counter() - t0) / TIMED
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(REQUESTS):
-            model(left, right)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / REQUESTS
-    os.makedirs(args.out, exist_ok=True)
-    trace = os.path.join(args.out, "trace.json")
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    os.makedirs(out_dir, exist_ok=True)
+    trace = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
@@ -103,24 +126,23 @@ def main() -> int:
     if not kernels:
         raise RuntimeError("the trace holds no device kernels")
     intervals = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in kernels]
-    busy_ms = _busy_us(intervals) / 1e3 / REQUESTS
+    busy_ms = _busy_us(intervals) / 1e3 / n
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"]) / 1e3
     by_group: dict[str, float] = {}
     for name, ms in by_name.items():
-        by_group[_group(name)] = by_group.get(_group(name), 0.0) + ms / REQUESTS
+        by_group[_group(name)] = by_group.get(_group(name), 0.0) + ms / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "size": SIZE,
-        "requests": REQUESTS, "wall_ms_per_request": wall_ms,
-        "device_busy_ms_per_request": busy_ms,
+    return {
+        "wall_ms_per_run": wall_ms, "device_busy_ms_per_run": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-        "kernel_launches_per_request": len(kernels) / REQUESTS,
-        "groups_ms_per_request": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
-        "top_kernels_ms_per_request": [[n[:90], ms / REQUESTS] for n, ms in top],
-    }))
-    return 0
+        "wall_ms_per_run_unprofiled": plain_wall_ms,
+        "device_idle_share_unprofiled": max(0.0, 1.0 - busy_ms / plain_wall_ms),
+        "kernel_launches_per_run": len(kernels) / n,
+        "groups_ms_per_run": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
+        "top_kernels_ms_per_run": [[name[:90], ms / n] for name, ms in top],
+    }
 
 
 if __name__ == "__main__":

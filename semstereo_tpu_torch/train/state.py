@@ -1,0 +1,42 @@
+"""Train state: the fp32 master model with its BN buffers, and the Adam
+optimizer (counterpart of ``semstereo_tpu/train/state.py``)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from semstereo_tpu_torch.config import TrainConfig, lr_for_epoch
+from semstereo_tpu_torch.models import SemStereo, build_model
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: SemStereo  # fp32 master parameters and fp32 BN running statistics
+    optimizer: torch.optim.Optimizer
+    epoch: int = 0
+
+
+def build_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
+    """Adam with the config's learning rate and betas and eps 1e-8, which
+    is optax's ``adam``.  The global-norm clip (``cfg.optim.grad_clip``) is
+    applied by the train step before ``step()``."""
+    return torch.optim.Adam(params, lr=cfg.optim.lr, betas=tuple(cfg.optim.betas), eps=1e-8)
+
+
+def init_state(cfg: TrainConfig, device="cuda") -> TrainState:
+    """A fresh state: the model of ``cfg.model`` on ``device`` (the card
+    unless the caller asks for the CPU) in train mode, with weights drawn
+    from ``cfg.seed``, and its optimizer."""
+    model = build_model(cfg.model, device=device, seed=cfg.seed).train()
+    return TrainState(model=model, optimizer=build_optimizer(cfg, model.parameters()))
+
+
+def set_learning_rate(state: TrainState, cfg: TrainConfig, epoch: int) -> TrainState:
+    """Apply the epoch's piecewise-constant learning rate."""
+    lr = lr_for_epoch(cfg.optim.lr, epoch, cfg.optim.lrepochs)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.epoch = epoch
+    return state

@@ -181,6 +181,23 @@ def test_derived_operands_follow_weight_changes(change, dims):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def test_derived_operands_are_not_reused_for_another_tensor():
+    """A weight made anew in every call (the bf16 casts that the eval step
+    hands to ``functional_call``) can land where an earlier one lay, at the
+    same address and version; what was derived from the earlier one must
+    not be reused for it."""
+    from semstereo_tpu_torch.nn.layers import derived
+
+    mod, buf = torch.nn.Module(), np.zeros(4, np.float32)
+    first = torch.from_numpy(buf)
+    assert derived(mod, torch.float32, (first,), first.clone).sum() == 0
+    buf[:] = 1.0  # new contents under a new tensor at the same address and version
+    second = torch.from_numpy(buf)
+    assert (second.data_ptr(), second._version) == (first.data_ptr(), first._version)
+    assert derived(mod, torch.float32, (second,), second.clone).sum() == 4
+    assert derived(mod, torch.float32, (second,), torch.zeros).sum() == 4  # kept
+
+
 # --- the kernels on the card ------------------------------------------------
 
 

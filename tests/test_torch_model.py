@@ -15,7 +15,8 @@ Bounds (the scheme of tests/test_model_parity_torch.py):
   classifier, depthwise shift-MAD);
 * disparity on columns >= 32: median |diff| < 0.01 px, p75 < 0.1 px, bulk
   bias < 0.01 px, and fewer than 8 % of pixels off by > 1 px, because
-  ``torch.topk`` and ``lax.top_k`` break exact ties in opposite orders.
+  planes whose weights tie to within fp32 rounding can enter the top k in
+  one run and not in the other.
 """
 
 import jax
@@ -148,13 +149,6 @@ def test_state_dict_round_trips_through_jax_converter(stage2):
     assert set(got) == set(want)
     for path, leaf in want.items():
         np.testing.assert_array_equal(np.asarray(got[path]), leaf, err_msg=str(path))
-
-
-def test_train_mode_is_not_ported():
-    model = SemStereo(maxdisp=MAXDISP).train()
-    x = torch.zeros(1, 64, 64, 3)
-    with pytest.raises(NotImplementedError):
-        model(x, x)
 
 
 @pytest.mark.parametrize("maxdisp,symmetric", [(40, True), (48, False)])

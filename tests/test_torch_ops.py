@@ -7,6 +7,7 @@ in another order), 1e-4 where the op reduces over channels (sums of up to
 a few hundred fp32 terms taken in another order).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -85,6 +86,51 @@ def test_regression_topk():
     samples = _rand(5, (2, 24, 6, 5), 10.0)
     _close(regression.regression_topk(torch.from_numpy(cost), torch.from_numpy(samples), 2),
            jreg.regression_topk(jnp.asarray(cost), jnp.asarray(samples), 2))
+
+
+def test_regression_topk_breaks_ties_as_lax_top_k():
+    cost = np.round(_rand(4, (2, 24, 6, 5), 2.0)) + 0.0  # many exact ties, no signed zeros
+    samples = _rand(5, (2, 24, 6, 5), 10.0)
+    _close(regression.regression_topk(torch.from_numpy(cost), torch.from_numpy(samples), 2),
+           jreg.regression_topk(jnp.asarray(cost), jnp.asarray(samples), 2))
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_topk_planes_breaks_ties_as_lax_top_k(symmetric):
+    """Equal weights enter the top k lower plane first, as lax.top_k has it
+    (which also orders -0.0 below +0.0; the grid here has no signed zeros)."""
+    raw = np.round(_rand(6, (2, 16, 6, 5), 1.5)) + 0.0
+    got = regression.topk_planes(torch.from_numpy(raw), 5, symmetric)
+    want = jreg.topk_planes(jnp.asarray(raw), 5, symmetric)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_topk_planes_gradient(symmetric):
+    """The VJP of all three outputs at k < D (continuous inputs: no ties),
+    against ``jax.vjp``: a fault in the gather's backward or in the index
+    order moves the gradient onto other planes."""
+    raw = _rand(13, (2, 16, 6, 5), 2.0)
+    cots = [_rand(14 + i, (2, 5, 6, 5)) for i in range(3)]
+    w = torch.from_numpy(raw).requires_grad_()
+    outs = regression.topk_planes(w, 5, symmetric)[:2]  # samples carry no gradient
+    (got,) = torch.autograd.grad(outs, w, [torch.from_numpy(c) for c in cots[:2]])
+    _, vjp = jax.vjp(lambda x: jreg.topk_planes(x, 5, symmetric), jnp.asarray(raw))
+    (want,) = vjp(tuple(jnp.asarray(c) for c in cots))
+    _close(got, want)
+
+
+def test_regression_topk_gradient():
+    """Both input gradients at k = 2 of 24 planes against ``jax.vjp``."""
+    cost, samples = _rand(17, (2, 24, 6, 5), 2.0), _rand(18, (2, 24, 6, 5), 10.0)
+    cot = _rand(19, (2, 6, 5))
+    c, s = (torch.from_numpy(a).requires_grad_() for a in (cost, samples))
+    got = torch.autograd.grad(regression.regression_topk(c, s, 2), (c, s), torch.from_numpy(cot))
+    _, vjp = jax.vjp(lambda a, b: jreg.regression_topk(a, b, 2), jnp.asarray(cost),
+                     jnp.asarray(samples))
+    for g, w in zip(got, vjp(jnp.asarray(cot))):
+        _close(g, w, REDUCE)
 
 
 def test_topk_rejects_k_above_planes():

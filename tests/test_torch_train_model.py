@@ -1,0 +1,301 @@
+"""One train step of the port against the JAX package's, on the CPU in fp32,
+from the same weights and batch: the train forward (all four disparities,
+``label_l``, ``label_r``), the loss terms, the BN running statistics after
+the step, every gradient, and the Adam update against optax.
+
+Config: US3D stage 2 cut to the tiny size of tests/test_train_integration.py
+(maxdisp 16, attention windows (1,2,2)) at 64x64, batch 2, with top-k set to
+keep every plane (``topk`` = the 8 planes at /4, ``refine_topk`` = 8).  With
+a hard top-k choice, a change of the weights at the level of fp32 rounding
+can move a plane in or out of the top k, and the plane takes its share of
+the gradient with it; two runs that round differently then differ by far
+more than their rounding.  With every plane kept, no hard choice sits on
+the gradient's path.
+
+Weights come from numpy (He-normal kernels, perturbed BN statistics and
+affine, x8 classifier output kernels), shaped by the JAX model's
+``eval_shape``; JAX takes them as they are, the port through
+``load_flax_variables``; gradients and statistics go back into the JAX tree
+through ``convert_semstereo_state_dict``.  Bounds:
+* loss terms rtol 1e-4; labels rtol 1e-3, atol 2e-3 (as the eval test);
+  disparities median |diff| < 1e-3 px and max < 0.1 px;
+* running statistics rtol = atol = 1e-4 (fp32 reductions over up to 1e5
+  values, in another order);
+* gradients: per top-level module, ||port - JAX|| / ||JAX|| <= 0.05.  The
+  two runs differ by fp32 rounding, which the net amplifies on its way to
+  the gradient; a fault in a backward (a wrong tap, flip, channel swap or
+  mask) gives an error of the order of the gradient itself.  Leaves whose
+  true gradient is 0 (conv biases in front of a BatchNorm) are left out:
+  both sides hold rounding noise there.
+"""
+
+import collections
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from semstereo_tpu.config import DataConfig as JDataConfig
+from semstereo_tpu.config import LossConfig as JLossConfig
+from semstereo_tpu.config import ModelConfig as JModelConfig
+from semstereo_tpu.config import OptimConfig as JOptimConfig
+from semstereo_tpu.config import TrainConfig as JTrainConfig
+from semstereo_tpu.train.state import build_model as jbuild_model
+from semstereo_tpu.train.state import build_optimizer as jbuild_optimizer
+from semstereo_tpu.train.steps import make_grads_fn as jmake_grads_fn
+from semstereo_tpu.utils.torch_convert import convert_semstereo_state_dict
+from semstereo_tpu_torch.config import ModelConfig, OptimConfig, TrainConfig
+from semstereo_tpu_torch.convert import load_flax_variables
+from semstereo_tpu_torch.data import SyntheticStereoDataset
+from semstereo_tpu_torch.models import SemStereo
+from semstereo_tpu_torch.train import (
+    TrainState,
+    build_optimizer,
+    init_state,
+    make_eval_step,
+    make_grads_fn,
+    make_train_step,
+)
+
+H = W = 64
+BATCH = 2
+MODEL = dict(maxdisp=16, topk=8, refine_topk=8, att_window1=(1, 2, 2), att_window2=(1, 2, 2))
+JCFG = JTrainConfig(model=JModelConfig(**MODEL), data=JDataConfig(batch_size=BATCH),
+                    optim=JOptimConfig(lr=1e-3), loss=JLossConfig())
+CFG = TrainConfig(model=ModelConfig(**MODEL))
+GRAD_REL = 0.05
+
+
+def _numpy_variables(seed):
+    jmodel = jbuild_model(JCFG)
+    dummy = jnp.zeros((BATCH, H, W, 3), jnp.float32)
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), dummy, dummy,
+                                                 train=False))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name, shape = jax.tree_util.keystr(path), leaf.shape
+        if name.endswith("['mean']"):
+            v = 0.1 * rng.standard_normal(shape)
+        elif name.endswith("['var']"):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif name.endswith("['scale']"):
+            v = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif name.endswith("['bias']"):
+            v = 0.05 * rng.standard_normal(shape)
+        elif name.endswith("['gamma']"):
+            v = 0.1 * rng.standard_normal(shape)
+        elif name.endswith("['beta']"):
+            v = np.full(shape, 2.0)
+        else:  # kernels: He-normal over fan_out
+            fan_out = int(np.prod(shape[:-2])) * shape[-1] if len(shape) > 2 else shape[-1]
+            v = rng.standard_normal(shape) * np.sqrt(2.0 / fan_out)
+        return v.astype(np.float32)
+
+    v = jax.tree_util.tree_map_with_path(fill, shapes)
+    params, stats = v["params"], v["batch_stats"]
+    params["classif_att"]["conv1"]["kernel"] *= 8.0
+    params["classif"]["conv1"]["kernel"] *= 8.0
+    return params, stats
+
+
+def _flat(tree):
+    return {jax.tree_util.keystr(p): np.asarray(v)
+            for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.fixture(scope="module")
+def step():
+    params, stats = _numpy_variables(seed=3)
+    batch = SyntheticStereoDataset(BATCH, H, W, MODEL["maxdisp"]).batch(0, BATCH)
+    jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+    jgrads, (jstats, jaux, jout, _) = jax.jit(jmake_grads_fn(JCFG))(params, stats, jbatch)
+
+    model = SemStereo(**MODEL).train()
+    load_flax_variables(model, params, stats)
+    aux, out, _ = make_grads_fn(CFG)(model, batch)
+    sd = {n: p.grad for n, p in model.named_parameters()}
+    sd.update(model.named_buffers())
+    grads, new_stats, unused = convert_semstereo_state_dict(sd)
+    return dict(params=params, stats_tree=stats, jgrads=_flat(jgrads), jstats=_flat(jstats),
+                jaux={k: float(v) for k, v in jaux.items()},
+                jout=jax.tree_util.tree_map(np.asarray, jout), grads=_flat(grads),
+                stats=_flat(new_stats), unused=unused, aux={k: float(v) for k, v in aux.items()},
+                out=out, jgrads_tree=jgrads)
+
+
+def test_train_forward_matches_jax(step):
+    assert set(step["aux"]) == set(step["jaux"]) == {"disp_loss", "label_loss", "lrsc_loss",
+                                                     "loss"}
+    for k, v in step["jaux"].items():
+        np.testing.assert_allclose(step["aux"][k], v, rtol=1e-4, err_msg=k)
+    out, jout = step["out"], step["jout"]
+    assert len(out["disp"]) == len(jout["disp"]) == 4
+    for got, want in zip(out["disp"], jout["disp"]):
+        assert got.shape == want.shape
+        diff = np.abs(got.numpy() - want)
+        assert float(np.median(diff)) < 1e-3 and float(diff.max()) < 0.1
+    for key in ("label_l", "label_r"):
+        np.testing.assert_allclose(out[key].numpy(), jout[key], rtol=1e-3, atol=2e-3)
+
+
+def test_train_batch_stats_match_jax(step):
+    assert step["unused"] == []
+    assert set(step["stats"]) == set(step["jstats"])
+    for path, want in step["jstats"].items():
+        np.testing.assert_allclose(step["stats"][path], want, rtol=1e-4, atol=1e-4, err_msg=path)
+
+
+def test_train_gradients_match_jax(step):
+    got, want = step["grads"], step["jgrads"]
+    assert set(got) == set(want)
+    total = np.sqrt(sum(float(np.sum(v ** 2)) for v in want.values()))
+    err, norm = collections.defaultdict(float), collections.defaultdict(float)
+    for path, w_ in want.items():
+        assert got[path].shape == w_.shape, path
+        if np.linalg.norm(w_) <= 1e-6 * total:  # a zero gradient (bias before a BN)
+            continue
+        module = path.split("']")[0][2:]
+        err[module] += float(np.sum((got[path] - w_) ** 2))
+        norm[module] += float(np.sum(w_ ** 2))
+    rel = {m: np.sqrt(err[m] / norm[m]) for m in norm}
+    assert len(rel) >= 25
+    bad = {m: r for m, r in rel.items() if not r <= GRAD_REL}
+    assert not bad, bad
+
+
+def test_adam_matches_optax(step):
+    """Two updates from the same gradients: the port's optimizer against the
+    JAX package's (optax ``adam``), bias correction included."""
+    jparams, jgrads = step["params"], step["jgrads_tree"]
+    tx = jbuild_optimizer(JCFG)
+    model, grad_model = SemStereo(**MODEL).train(), SemStereo(**MODEL)
+    load_flax_variables(model, jparams, step["stats_tree"])
+    load_flax_variables(grad_model, jax.tree_util.tree_map(np.asarray, jgrads),
+                        step["stats_tree"])  # the JAX gradients, in the port's layouts
+    grads = dict(grad_model.named_parameters())
+    opt = build_optimizer(CFG, model.parameters())
+
+    @jax.jit
+    def two_updates(p, g):
+        s = tx.init(p)
+        for _ in range(2):
+            u, s = tx.update(g, s, p)
+            p = optax.apply_updates(p, u)
+        return p
+
+    for _ in range(2):
+        for n, p in model.named_parameters():
+            p.grad = grads[n].detach().clone()
+        opt.step()
+    got = _flat(convert_semstereo_state_dict(model.state_dict())[0])
+    for path, want in _flat(two_updates(jparams, jgrads)).items():
+        np.testing.assert_allclose(got[path], want, rtol=1e-6, atol=1e-7, err_msg=path)
+
+
+def test_grad_accum_averages_microbatches():
+    """grad_accum 2 on a batch of 2 gives the mean of the two one-sample
+    gradients, taken in turn with the BN statistics threaded through."""
+    batch = SyntheticStereoDataset(2, 64, 64, 16).batch(0, 2)
+    torch.manual_seed(0)
+    model = SemStereo(**MODEL).train()
+    twin = SemStereo(**MODEL).train()
+    twin.load_state_dict(model.state_dict())
+    make_grads_fn(CFG.replace(optim=OptimConfig(grad_accum=2)))(model, batch)
+    single = make_grads_fn(CFG)
+    for i in range(2):
+        single(twin, {k: v[i:i + 1] for k, v in batch.items()})
+    for (n, p), q in zip(model.named_parameters(), twin.parameters()):
+        torch.testing.assert_close(p.grad, q.grad / 2, rtol=1e-4, atol=1e-6, msg=n)
+    for (n, b), c in zip(model.named_buffers(), twin.buffers()):
+        torch.testing.assert_close(b, c, rtol=0, atol=0, msg=n)
+
+
+@pytest.mark.parametrize("dtype,stage1", [("float32", False), ("bfloat16", True)])
+def test_train_step_on_the_cpu(dtype, stage1):
+    """The whole step through the port's entry points: finite losses and
+    metrics, fp32 gradients and parameters that move, fp32 BN statistics
+    that move, and the train outputs of the stage."""
+    model_cfg = ModelConfig(maxdisp=16, topk=4, att_window1=(1, 2, 2), att_window2=(1, 2, 2),
+                            att_weights_only=stage1)
+    cfg = TrainConfig(model=model_cfg, compute_dtype=dtype,
+                      optim=OptimConfig(grad_clip=1.0))
+    state = init_state(cfg, device="cpu")
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    batch = SyntheticStereoDataset(2, 64, 64, 16).batch(0, 2)
+    scalars = make_train_step(cfg)(state, batch)
+    assert set(scalars) == {"disp_loss", "label_loss", "lrsc_loss", "loss", "EPE", "D1",
+                            "Thres1", "Thres2", "Thres3"}
+    assert all(torch.isfinite(v) for v in scalars.values())
+    params = dict(state.model.named_parameters())
+    assert all(p.dtype == torch.float32 and torch.isfinite(p.grad).all() for p in params.values())
+    moved = [n for n, v in state.model.state_dict().items() if not torch.equal(v, before[n])]
+    assert "feature.conv_stem.conv.weight" in moved and "chal_2.1.running_var" in moved
+    assert state.model.chal_2[1].running_var.dtype == torch.float32
+    ev = make_eval_step(cfg)(state, batch)
+    assert ev["disp_est"].shape == (2, 64, 64) and ev["confusion"].shape == (5, 5)
+    assert isinstance(state, TrainState) and not state.model.training
+    out = SemStereo(**{k: getattr(model_cfg, k) for k in MODEL}, att_weights_only=stage1)\
+        .train()(batch["left"], batch["right"])
+    assert len(out["disp"]) == (2 if stage1 else 4)
+
+
+def test_bf16_eval_after_a_train_step_uses_the_new_weights():
+    """The bf16 eval step runs on casts of the master weights made anew in
+    every call.  An eval after a train step must use the updated weights,
+    whatever memory the new casts land in: its estimates equal those of a
+    run with every module's cached eval operands dropped."""
+    cfg = TrainConfig(model=ModelConfig(maxdisp=16, topk=4, att_window1=(1, 2, 2),
+                                        att_window2=(1, 2, 2)), compute_dtype="bfloat16")
+    state = init_state(cfg, device="cpu")
+    batch = SyntheticStereoDataset(2, 64, 64, 16).batch(0, 2)
+    eval_step, train_step = make_eval_step(cfg), make_train_step(cfg)
+    eval_step(state, batch)
+    for _ in range(2):
+        train_step(state, batch)
+    cached = eval_step(state, batch)
+    for m in state.model.modules():
+        m.__dict__.pop("_derived", None)
+    fresh = eval_step(state, batch)
+    for key in ("disp_est", "confusion"):
+        torch.testing.assert_close(cached[key], fresh[key], rtol=0, atol=0, msg=key)
+
+
+def test_init_state_runs_on_the_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_state(CFG)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port, and chip_smoke.py, imported in a fresh
+    interpreter where importing ``jax`` or ``semstereo_tpu`` raises."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = """
+import importlib, importlib.abc, pkgutil, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "semstereo_tpu"):
+            raise ImportError("blocked: " + name)
+for name in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]:
+    del sys.modules[name]
+sys.meta_path.insert(0, Block())
+import semstereo_tpu_torch
+n = 0
+for m in pkgutil.walk_packages(semstereo_tpu_torch.__path__, "semstereo_tpu_torch."):
+    importlib.import_module(m.name)
+    n += 1
+import chip_smoke
+print(n)
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ, PYTHONPATH=root))
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert int(res.stdout.split()[-1]) >= 25
