@@ -10,7 +10,9 @@
    card (TF32 off): max abs/rel error, kernel and plain device times (median
    of CUDA-event timings, L2 scrubbed before each), the least time the card
    could take (bound), and for K1 the time of ``F.conv3d`` + affine + ReLU
-   as a yardstick the port never calls.
+   as a yardstick the port never calls.  K1 also runs, in bf16, at the
+   shapes of the stride-1 dx that K3 gives it at the train batch (C and F
+   swapped, C = 1 for the Cout=1 convs), in rows marked ``role: "dx"``.
 3. Path: SemStereo US3D stage 2, eval, bf16, B=1, 1024x1024, maxdisp 64,
    seeded random weights with non-trivial BN statistics; 2 warm-up and 10
    timed requests on an integer-shift stereo pair.  Launch counts are zeroed
@@ -22,12 +24,15 @@
    its labels and by each volume module against its fp32 CPU twin on the
    inputs the bf16 run gave it (``BF16_REL``).
 5. Train kernels: K3, the backward of ``ops.conv3d.conv3d`` (stride-1 dx
-   by K1, stride-2 dx and dw by library calls), at the 13 volume-conv
-   shapes at the train batch, and K4 ``gwc_volume_bwd`` at the main-path
-   shape, symmetric and positive, bf16 and fp32, against their plain
-   versions (and K4 also against autograd of the plain forward): errors,
-   device times of each part, bound, and for K3 the time of cuDNN's
-   backward (autograd of ``F.conv3d``) as a yardstick the port never calls.
+   by K1, stride-2 dx by ``F.conv_transpose3d``, dw by the kernel of
+   ``csrc/conv3d_wgrad.cu``), at the 13 volume-conv shapes at the train
+   batch, and K4 ``gwc_volume_bwd`` at the main-path shape, symmetric and
+   positive, bf16 and fp32, against their plain versions (K3's dw also
+   alone against ``conv3d_weight_grad_plain``; K4 also against autograd of
+   the plain forward): errors, device times of each part, bound, and as
+   yardsticks the port never calls, cuDNN's whole backward (autograd of
+   ``F.conv3d``), its dgrad alone and its wgrad alone
+   (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``).
 6. Train path: one US3D stage-2 train step at 1024x1024, batch 2, bf16
    compute on fp32 master parameters, Adam lr 1e-3, seg + LRSC losses,
    through ``train.init_state`` and ``train.make_train_step``, on one
@@ -97,10 +102,12 @@ VOLUME_MODULES = ("hourglass_att", "classif_att_", "concat_stem", "hourglass", "
 BF16_REL = 5e-2
 # The train path: batch per card, warm-up and timed steps, and the kernel
 # launches of one step (forward: 9 + 4 volume convs and the cost volume;
-# backward: a K1 dx for each stride-1 conv, K4 once).
+# backward: a K1 dx for each stride-1 conv ("K3"), a dw for each of the 13
+# volume convs ("K3-dw"), K4 once).
 TRAIN_BATCH = 2
 TRAIN_WARM, TRAIN_TIMED = 2, 5
-TRAIN_LAUNCHES = {"K1-s1": 18, "K1-s2": 4, "K2": 1, "K3": 9, "K4": 1}
+TRAIN_LAUNCHES = {"K1-s1": 18, "K1-s2": 4, "K2": 1, "K3": 9, "K3-dw": 13, "K4": 1}
+EVAL_LAUNCHES = {"K1-s1": 9, "K1-s2": 4, "K2": 1, "K3": 0, "K3-dw": 0, "K4": 0}
 # K4 at the main path's shape at the train batch: features [2, 128, 128, 256].
 K4_SHAPE = ((TRAIN_BATCH, 128, 128, 256), 32, 8)
 # The fp32 card step against the CPU step at 256x256 with every plane kept
@@ -120,6 +127,13 @@ SPIN_CYCLES = 50_000_000
 
 def log(*a):
     print(*a, flush=True)
+
+
+def phase(name: str, since: float) -> float:
+    """Logs the wall time of a phase that began at ``since``; returns now."""
+    now = time.perf_counter()
+    log(f"phase {name} {now - since:.1f} s")
+    return now
 
 
 def timed_ms(fn, reps: int, scrub: torch.Tensor) -> float:
@@ -157,12 +171,21 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k1_dx_shapes():
+    """K1 as K3's stride-1 dx: the output gradient of each stride-1 conv at
+    the train batch as input, the conv's C as output channels."""
+    return [(name + " dx", (TRAIN_BATCH, *xs[1:4], f), xs[-1], 1)
+            for name, xs, f, s in K1_SHAPES if s == 1]
+
+
 def check_k1(ops, gen, scrub):
-    """Per-shape results of K1 for both dtypes."""
+    """Per-shape results of K1 for both dtypes, and at the dx shapes in bf16."""
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    runs = [(torch.bfloat16, K1_SHAPES, "forward"), (torch.float32, K1_SHAPES, "forward"),
+            (torch.bfloat16, k1_dx_shapes(), "dx")]
+    for dtype, shapes, role in runs:
         size = torch.finfo(dtype).bits // 8
-        for name, xs, f, s in K1_SHAPES:
+        for name, xs, f, s in shapes:
             c = xs[-1]
             x = torch.randn(xs, device="cuda", generator=gen).to(dtype)
             w = (torch.randn((3, 3, 3, c, f), device="cuda", generator=gen)
@@ -188,8 +211,9 @@ def check_k1(ops, gen, scrub):
             nbytes = (x.numel() + w.numel() + y.numel()) * size + 8 * f
             b_ms, b_by = bound_ms(nbytes, flops, dtype)
             row = dict(
-                kernel="K1-s1" if s == 1 else "K1-s2", name=name, dtype=str(dtype)[6:],
-                shape=list(xs), F=f, stride=s, max_abs_err=err, max_rel_err=rel,
+                kernel="K1-s1" if s == 1 else "K1-s2", name=name, role=role,
+                dtype=str(dtype)[6:], shape=list(xs), F=f, stride=s, max_abs_err=err,
+                max_rel_err=rel,
                 ms=timed_ms(lambda: ops.conv3d_bn_act(x, w, sc, bi, s, True), 10, scrub),
                 plain_ms=timed_ms(lambda: ops.conv3d_bn_act_plain(x, w, sc, bi, s, True), 3,
                                   scrub),
@@ -262,20 +286,21 @@ def stereo_pair(size: int, shift: int, seed: int):
 
 
 def counts(ops):
-    from semstereo_tpu_torch.ops.conv3d import conv3d_input_grad_s1
+    from semstereo_tpu_torch.ops.conv3d import conv3d_input_grad_s1, conv3d_weight_grad
 
     return {"K1-s1": ops.conv3d_bn_act.launches_s1, "K1-s2": ops.conv3d_bn_act.launches_s2,
             "K2": ops.gwc_volume_norm.launches, "K3": conv3d_input_grad_s1.launches,
-            "K4": ops.gwc_volume_norm_bwd.launches}
+            "K3-dw": conv3d_weight_grad.launches, "K4": ops.gwc_volume_norm_bwd.launches}
 
 
 def reset_counts(ops):
-    from semstereo_tpu_torch.ops.conv3d import conv3d_input_grad_s1
+    from semstereo_tpu_torch.ops.conv3d import conv3d_input_grad_s1, conv3d_weight_grad
 
     ops.conv3d_bn_act.launches_s1 = 0
     ops.conv3d_bn_act.launches_s2 = 0
     ops.gwc_volume_norm.launches = 0
     conv3d_input_grad_s1.launches = 0
+    conv3d_weight_grad.launches = 0
     ops.gwc_volume_norm_bwd.launches = 0
 
 
@@ -295,7 +320,7 @@ def run_path(ops, cpu_model, n_warm=2, n_timed=10):
             times.append(1e3 * (time.perf_counter() - t0))
     launches = counts(ops)
     n = n_warm + n_timed
-    want = {"K1-s1": 9 * n, "K1-s2": 4 * n, "K2": n, "K3": 0, "K4": 0}
+    want = {k: v * n for k, v in EVAL_LAUNCHES.items()}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want} for {n} requests")
     disp, label = out["disp"][0], out["label_l"]
@@ -337,7 +362,7 @@ def card_run(ops, cpu_model, dtype, left, right, capture=()):
     torch.cuda.synchronize()
     for h in hooks:
         h.remove()
-    if counts(ops) != {"K1-s1": 9, "K1-s2": 4, "K2": 1, "K3": 0, "K4": 0}:
+    if counts(ops) != EVAL_LAUNCHES:
         raise AssertionError(f"{dtype} card run launches {counts(ops)}")
     return out, seen
 
@@ -380,7 +405,8 @@ def run_agreement(ops, cpu_model):
 def check_k3(gen, scrub):
     """K3, the backward of ``conv3d``, at the 13 volume-conv shapes at the
     train batch, both dtypes: y, dx and dw against ``conv3d_plain`` (fp32
-    ``F.conv3d`` and autograd), and the device time of each part."""
+    ``F.conv3d`` and autograd), dw alone against ``conv3d_weight_grad_plain``,
+    and the device time of each part beside cuDNN's."""
     from semstereo_tpu_torch.ops import conv3d as c3
 
     rows = []
@@ -398,11 +424,15 @@ def check_k3(gen, scrub):
             torch.cuda.synchronize()
             y_p = c3.conv3d_plain(x, w, s)
             dx_p, dw_p = torch.autograd.grad(y_p, (x, w), gy, retain_graph=True)
+            xd, wd = x.detach(), w.detach()
+            dw_k = c3.conv3d_weight_grad(xd, gy, s)
+            torch.cuda.synchronize()
+            dw_plain = c3.conv3d_weight_grad_plain(xd.float(), gy.float(), s)
             errs = {k: compare(a, b) for k, (a, b) in
-                    dict(y=(y, y_p), dx=(dx, dx_p), dw=(dw, dw_p)).items()}
+                    dict(y=(y, y_p), dx=(dx, dx_p), dw=(dw, dw_p),
+                         dw_alone=(dw_k, dw_plain)).items()}
             if not all(rel <= REL_TOL[dtype] for _, rel in errs.values()):
                 raise AssertionError(f"K3 {name} {dtype}: {errs}")
-            xd, wd = x.detach(), w.detach()
             w3 = wd.permute(2, 3, 4, 1, 0).contiguous()
             if s == 1:
                 dx_ms = timed_ms(lambda: c3.conv3d_input_grad_s1(gy, w3), 10, scrub)
@@ -420,6 +450,15 @@ def check_k3(gen, scrub):
             gy_l = gy.permute(0, 4, 1, 2, 3)
             library_ms = timed_ms(
                 lambda: torch.autograd.grad(y_l, (x_l, w_l), gy_l, retain_graph=True), 10, scrub)
+            # cuDNN's dgrad and wgrad alone, in the path dtype only (the
+            # kernels line reads bf16 rows)
+            xl_d, wl_d = x_l.detach(), w_l.detach()
+            dx_library_ms = dw_library_ms = None
+            if dtype == PATH_DTYPE:
+                dx_library_ms = timed_ms(lambda: torch.nn.grad.conv3d_input(
+                    xl_d.shape, wl_d, gy_l, stride=s, padding=1), 10, scrub)
+                dw_library_ms = timed_ms(lambda: torch.nn.grad.conv3d_weight(
+                    xl_d, wl_d.shape, gy_l, stride=s, padding=1), 10, scrub)
             m = y.numel() // f
             flops = 2 * 2.0 * m * 27 * c * f  # dx and dw
             nbytes = (2 * x.numel() + 2 * w.numel() + gy.numel()) * size
@@ -429,12 +468,12 @@ def check_k3(gen, scrub):
                 max_abs_err=max(e for e, _ in errs.values()),
                 max_rel_err={k: r for k, (_, r) in errs.items()},
                 ms=dx_ms + s2_ms + dw_ms, dx_k1_ms=dx_ms, s2_dx_ms=s2_ms, dw_ms=dw_ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                gflop=flops / 1e9,
+                plain_ms=plain_ms, library_ms=library_ms, dx_library_ms=dx_library_ms,
+                dw_library_ms=dw_library_ms, bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9,
             )
             log("kernel", json.dumps(row))
             rows.append(row)
-            del x, w, y, gy, dx, dw, y_p, dx_p, dw_p, x_l, w_l, y_l
+            del x, w, y, gy, dx, dw, y_p, dx_p, dw_p, x_l, w_l, y_l, dw_k, dw_plain
     return rows
 
 
@@ -581,6 +620,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("no CUDA device: the port's kernels and main path run on the card")
         return 1
+    t = time.perf_counter()
     from semstereo_tpu_torch import ops
     from semstereo_tpu_torch.config import PRESETS
     from semstereo_tpu_torch.ops import _build
@@ -596,16 +636,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     scrub = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    t = phase("build", t)
     rows = check_k1(ops, gen, scrub) + check_k2(ops, gen, scrub)
+    t = phase("kernels K1 K2", t)
     rows += check_k3(gen, scrub) + check_k4(ops, gen, scrub)
+    t = phase("kernels K3 K4", t)
     del scrub
 
     cpu_model = seeded_model(PRESETS["us3d_stage2"], seed=0)
     path = run_path(ops, cpu_model)
+    t = phase("eval path", t)
     run_agreement(ops, cpu_model)
+    t = phase("eval agreement", t)
     del cpu_model
     train = run_train(ops)
+    t = phase("train path", t)
     run_train_agreement(ops)
+    phase("train agreement", t)
 
     kernels = []
     meta = {
@@ -615,7 +662,7 @@ def main() -> int:
                   "semstereo_tpu/ops/pallas/conv3d_wl.py:276"),
         "K2": ("semstereo_tpu_torch/csrc/gwc_volume.cu",
                "semstereo_tpu/ops/pallas/cost_volume_kernel.py:150"),
-        "K3": ("semstereo_tpu_torch/csrc/conv3d.cu",
+        "K3": ("semstereo_tpu_torch/csrc/conv3d.cu, semstereo_tpu_torch/csrc/conv3d_wgrad.cu",
                "semstereo_tpu/ops/pallas/conv3d_wl.py:346"),
         "K4": ("semstereo_tpu_torch/csrc/gwc_volume_bwd.cu",
                "semstereo_tpu/ops/pallas/cost_volume_kernel.py:280"),
@@ -623,7 +670,8 @@ def main() -> int:
     for name, (source, replaces) in meta.items():
         # one request's or step's worth: every main-path shape of the
         # kernel, path dtype (K1/K2 at the eval batch, K3/K4 at the train one)
-        mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
+        mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"
+                and r.get("role", "forward") == "forward"]
         if name in ("K2", "K4"):
             mine = [r for r in mine if r["name"].endswith("symmetric")]
         lib = [r["library_ms"] for r in mine]
@@ -639,13 +687,14 @@ def main() -> int:
             library_ms=None if None in lib else sum(lib),
         )
         if name == "K3":
-            # only the stride-1 dx is a hand-written kernel (K1); the JAX
-            # package computes the stride-2 dx and dw as XLA ops, and so
-            # does the port with library calls
+            # the stride-1 dx is K1 and dw its own kernel; the JAX package
+            # leaves the stride-2 dx to XLA, and the port to a library call
             entry["route_parts"] = {"dx_k1_ms": "cuda, csrc/conv3d.cu (K1)",
                                     "s2_dx_ms": "library, F.conv_transpose3d",
-                                    "dw_ms": "library, torch.matmul"}
-            entry.update({k: sum(r[k] for r in mine) for k in ("dx_k1_ms", "s2_dx_ms", "dw_ms")})
+                                    "dw_ms": "cuda, csrc/conv3d_wgrad.cu"}
+            entry["launches_dw"] = train["launches"]["K3-dw"]
+            entry.update({k: sum(r[k] for r in mine) for k in (
+                "dx_k1_ms", "s2_dx_ms", "dw_ms", "dx_library_ms", "dw_library_ms")})
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

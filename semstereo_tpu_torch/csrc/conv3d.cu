@@ -10,25 +10,37 @@
 //
 // What bounds it on the card: operations.  The main path's 13 launches do
 // about 390 GFLOP for a few hundred MB of traffic, far above the H100's
-// ~295 FLOP/byte ridge, so the products must run on the tensor cores.  Both
+// ~295 FLOP/byte ridge, so the products must run on the tensor cores.  All
 // variants are implicit GEMMs with M = output voxels, N = F, K = 27 C; the
 // halo and ragged edges read as zero and the BN affine and ReLU run in the
 // epilogue.
-//  * bf16 (C % 8 == 0, as at every main-path shape): WMMA m16n16k16 on the
-//    tensor cores with fp32 accumulation.  Each block stages its output
-//    tile's input halo once per 32 channels and reuses it for all 27 taps,
-//    so an input element crosses from L2 into shared memory about 4 times
-//    instead of 27 (conv3d_halo_kernel).
-//  * fp32: the same GEMM on the CUDA cores with
-//    fp32 FMA, one tap and 32 channels per step, and a TM x TN register tile
-//    per thread.  fp32 has no tensor-core path: TF32 would lose the 1e-4
-//    agreement with the plain version.
-// Next: double-buffer the halo and weights, then wgmma with TMA-fed tiles.
+//  * bf16, C % 8 == 0 (conv3d_tc_kernel): a block owns a TH x 32 tile of
+//    output rows and columns and F-block, and walks a run of output planes.
+//    Input planes (the tile's halo, all channels) sit in a ring of two
+//    slots, each XOR-swizzled so that ldmatrix reads no padding and no bank
+//    conflict.  Output plane od reads planes od*S - 1, od*S, od*S + 1 one
+//    after the other (kd = 0, 1, 2); while kd = 1 runs, cp.async refills the
+//    slot of the kd = 0 plane with the kd = 2 one, and at stride 2, while
+//    kd = 2 runs, the slot of the kd = 1 plane with the next output plane's
+//    kd = 1 one.  So an input plane crosses into shared memory once per
+//    block instead of once per kd tap, and each load has nine taps of
+//    products to hide behind.  The weights stream one tap (C x BN) at a time
+//    through three more slots, two taps ahead.  Each warp owns WR output
+//    rows x 32 columns x 32 channels and runs ldmatrix + mma.sync m16n8k16,
+//    loading each B fragment once for all its A fragments.  Stride 2 uses
+//    4-row tiles up to 64 channels and 2-row ones above.
+//  * bf16, C < 8 (conv3d_narrow_kernel, the Cout=1 classifier convs' input
+//    gradient): the 27 taps x C channels are packed into one K dimension
+//    (27 x 1 channel in one K = 32 step) of an im2col tile, instead of
+//    padding C to 8.
+//  * fp32 (conv3d_kernel): the same GEMM on the CUDA cores with fp32 FMA, one
+//    tap and 32 channels per step, and a TM x TN register tile per thread.
+//    fp32 has no tensor-core path: TF32 would lose the 1e-4 agreement with
+//    the plain version.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <cstdint>
+#include <algorithm>
+
+#include "tc.cuh"
 
 namespace {
 
@@ -126,167 +138,407 @@ conv3d_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-
 // ---------------------------------------------------------------------------
-// bf16 tensor-core variant (C % 8 == 0).  A block owns an output tile of one
-// plane, HTH rows x HTW columns (128 voxels), x BN (16, 32 or 64) channels;
-// each of its 8 warps one row and 16 columns.  Per chunk of 32 input
-// channels the block stages the tile's input halo (3 planes, with the
-// stride-S footprint of the tile plus the 3x3 border) once in shared memory
-// by cp.async, zero-filled outside the volume, and reuses it for all 27
-// taps: the A fragment of tap (kd, kh, kw) is a strided view of the halo
-// (row stride S voxels).  The weights of one kd plane (9 taps x 32 x BN)
-// follow, by cp.async where F % 8 == 0 and plain loads otherwise.  WMMA
-// m16n16k16 bf16 products accumulate in fp32; the epilogue goes through
-// shared memory so that the stores are coalesced.
+// bf16 tensor-core kernels
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+using bf16 = __nv_bfloat16;
+
+// Stores the fp32 accumulators of one m16n8 tile row (the pair at columns f,
+// f + 1) after the affine and ReLU; pairs as one 4-byte store where F is even.
+__device__ __forceinline__ void store_pair(bf16* __restrict__ y, int64_t at, int f, int F, float v0,
+                                           float v1, const float* __restrict__ scale,
+                                           const float* __restrict__ bias, int relu) {
+  if (f >= F) return;
+  v0 = fmaf(v0, scale[f], bias[f]);
+  if (relu) v0 = fmaxf(v0, 0.f);
+  if (f + 1 < F) {
+    v1 = fmaf(v1, scale[f + 1], bias[f + 1]);
+    if (relu) v1 = fmaxf(v1, 0.f);
+  }
+  if ((F & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(y + at + f) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    y[at + f] = __float2bfloat16(v0);
+    if (f + 1 < F) y[at + f + 1] = __float2bfloat16(v1);
+  }
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-// output rows and columns of a tile, input channels per chunk, and the
-// halo's voxel stride in elements (32 channels + 16 of padding: 96 bytes, so
-// every fragment start is 32-byte aligned and rows spread over the banks)
-constexpr int HTH = 4, HTW = 32, HKC = 32, HVS = 48;
+constexpr int TW = 32;  // output columns of a tile
 
-template <int BN, bool VEC_W, int S>
-__global__ void __launch_bounds__(256)
-conv3d_halo_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                   const float* __restrict__ scale, const float* __restrict__ bias,
-                   __nv_bfloat16* __restrict__ y, int D, int H, int W, int C, int F, int OD,
-                   int OH, int OW, int relu, int tiles_w) {
-  using namespace nvcuda;
-  constexpr int HHH = (HTH - 1) * S + 3, HHW = (HTW - 1) * S + 3;
-  constexpr int HALO_ELEMS = 3 * HHH * HHW * HVS;
-  constexpr int LDB = BN + 8;
-  constexpr int FN = BN / 16;
-  constexpr int LDC = BN + 4;
+// Shared memory of conv3d_tc_kernel: two plane slots and three weight slots.
+struct TcLayout {
+  int CK, kch, CP, HR, HC, slab, wslot;
+  __host__ __device__ TcLayout(int C, int S, int TH, int BN) {
+    CK = (C + 15) & ~15;  // channels per tap, padded to the k16 step
+    kch = CK / 8;         // 16-byte chunks of a voxel that are loaded
+    CP = 2;               // chunks per voxel in a slot (a power of two, for the swizzle)
+    while (CP < kch) CP <<= 1;
+    HR = (TH - 1) * S + 3;
+    HC = (TW - 1) * S + 3;
+    slab = HR * HC * CP * 16;
+    wslot = CK * BN * 2;
+  }
+  __host__ __device__ int bytes() const { return 2 * slab + 3 * wslot; }
+};
+
+template <int TH, int WR, int BN>
+__host__ __device__ constexpr int tc_threads() {
+  return (TH / WR) * (BN < 32 ? 1 : BN / 32) * 32;
+}
+
+// MINB blocks per SM bound the registers a thread may take (launch_tc_bn)
+template <int TH, int WR, int BN, int MINB>
+__global__ void __launch_bounds__(tc_threads<TH, WR, BN>(), MINB)
+conv3d_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                 const float* __restrict__ scale, const float* __restrict__ bias,
+                 bf16* __restrict__ y, int D, int H, int W, int C, int F, int S, int OD, int OH,
+                 int OW, int relu, int tiles_w, int nsplit, int dper) {
+  constexpr int WN = BN < 32 ? BN : 32;  // output channels of a warp
+  constexpr int NT = WN / 8;             // its n8 tiles
+  constexpr int WARPS_N = BN / WN;
+  constexpr int NTH = tc_threads<TH, WR, BN>();
+  constexpr int WCH = BN / 8;            // 16-byte chunks of a weight row
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* wts = halo + HALO_ELEMS;  // [9][HKC][LDB]
 
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wr = warp / 2, wh = warp % 2;  // output row and 16-column half of this warp
-  const int h0 = (blockIdx.x / tiles_w) * HTH, w0 = (blockIdx.x % tiles_w) * HTW;
-  const int od = blockIdx.y % OD, b = blockIdx.y / OD;
+  const TcLayout L(C, S, TH, BN);
+  const unsigned sbase = tc::smem_addr(smem);
+  const unsigned wbase = sbase + 2 * L.slab;
+  const tc::Swizzle xsw(L.CP, S), wsw(WCH, 1);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int h0 = (blockIdx.x / tiles_w) * TH, w0 = (blockIdx.x % tiles_w) * TW;
+  const int b = blockIdx.y / nsplit;
+  const int od0 = (blockIdx.y % nsplit) * dper;
+  const int od1 = min(od0 + dper, OD);
   const int n0 = blockIdx.z * BN;
-  const int64_t vbase = (int64_t)b * D * H * W;
+  const int64_t vb = (int64_t)b * D * H * W;
+  if (od0 >= od1) return;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FN];
-#pragma unroll
-  for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  for (int c0 = 0; c0 < C; c0 += HKC) {
-    __syncthreads();  // the previous chunk's products are done with halo/wts
-    for (int q = tid; q < 3 * HHH * HHW * (HKC / 8); q += 256) {
-      const int ch = q % (HKC / 8);
-      const int v = q / (HKC / 8);
-      const int iw = v % HHW, ih = (v / HHW) % HHH, id = v / (HHW * HHH);
-      const int gd = od * S + id - 1, gh = h0 * S + ih - 1, gw = w0 * S + iw - 1;
-      const int c = c0 + ch * 8;
-      const bool ok = c < C && gd >= 0 && gd < D && gh >= 0 && gh < H && gw >= 0 && gw < W;
-      const __nv_bfloat16* src = ok ? x + (vbase + ((int64_t)gd * H + gh) * W + gw) * C + c : x;
-      cp_async16(halo + v * HVS + ch * 8, src, ok);
+  // input plane p (all channels of the tile's halo) into slot p mod 2
+  auto load_plane = [&](int p) {
+    const unsigned dst = sbase + ((p + 2) & 1) * L.slab;
+    const bool pin = p >= 0 && p < D;
+    for (int q = tid; q < L.HR * L.HC * L.kch; q += NTH) {
+      const int k = q % L.kch, v = q / L.kch;
+      const int gh = h0 * S - 1 + v / L.HC, gw = w0 * S - 1 + v % L.HC, c = k * 8;
+      const bool ok = pin && gh >= 0 && gh < H && gw >= 0 && gw < W && c < C;
+      const bf16* src = ok ? x + (vb + ((int64_t)p * H + gh) * W + gw) * C + c : x;
+      tc::cp_async16(dst + (v * L.CP + (k ^ xsw(v))) * 16, src, ok);
     }
-    cp_async_commit();
-    for (int kd = 0; kd < 3; ++kd) {
-      if (kd > 0) __syncthreads();  // products of the previous kd plane are done with wts
-      if (VEC_W) {
-        for (int q = tid; q < 9 * HKC * (BN / 8); q += 256) {
-          const int n8 = q % (BN / 8), kk = (q / (BN / 8)) % HKC, t = q / (HKC * (BN / 8));
-          const int c = c0 + kk, f = n0 + n8 * 8;
-          const bool ok = c < C && f < F;
-          const __nv_bfloat16* src = ok ? w + ((int64_t)(kd * 9 + t) * C + c) * F + f : w;
-          cp_async16(wts + (t * HKC + kk) * LDB + n8 * 8, src, ok);
-        }
-        cp_async_commit();
+  };
+  // the weights of tap t (C x BN, zero-padded to CK rows) into slot j mod 3
+  auto load_w = [&](int j) {
+    const int t = j % 27;
+    if ((F & 7) == 0) {
+      const unsigned dst = wbase + (j % 3) * L.wslot;
+      for (int q = tid; q < L.CK * WCH; q += NTH) {
+        const int n8 = q % WCH, r = q / WCH, f = n0 + n8 * 8;
+        const bool ok = r < C && f < F;
+        const bf16* src = ok ? w + ((int64_t)t * C + r) * F + f : w;
+        tc::cp_async16(dst + (r * WCH + (n8 ^ wsw(r))) * 16, src, ok);
+      }
+    } else {
+      bf16* ws = reinterpret_cast<bf16*>(smem + 2 * L.slab + (j % 3) * L.wslot);
+      for (int q = tid; q < L.CK * BN; q += NTH) {
+        const int n = q % BN, r = q / BN, f = n0 + n;
+        ws[(r * WCH + ((n >> 3) ^ wsw(r))) * 8 + (n & 7)] =
+            (r < C && f < F) ? w[((int64_t)t * C + r) * F + f] : __float2bfloat16(0.f);
+      }
+    }
+  };
+
+  float acc[2 * WR][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2 * WR; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  load_plane(od0 * S - 1);
+  load_plane(od0 * S);
+  load_w(0);
+  tc::cp_async_commit();
+  load_w(1);
+  tc::cp_async_commit();
+
+  const int gid = lane >> 2, tig = lane & 3;
+  const int steps = (od1 - od0) * 27;
+  for (int g = 0; g < steps; ++g) {
+    // step g's plane and weights have landed; every warp is done with step
+    // g - 1, whose weight slot (and, at kd = 1 or 2, plane slot) is free
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    const int od = od0 + g / 27, t = g % 27;
+    const int kd = t / 9, kh = (t / 3) % 3, kw = t % 3;
+    if (g + 2 < steps) load_w(g + 2);
+    // the kd = 0 plane od*S - 1 is done with: its slot takes the kd = 2
+    // plane; at stride 2 the kd = 1 plane od*S is then done with too, and
+    // its slot takes od*S + 2, output plane od + 1's kd = 1 plane (at
+    // stride 1 the next output plane reads od*S and od*S + 1, still held)
+    if (t == 9) load_plane(od * S + 1);
+    if (S == 2 && t == 18 && od + 1 < od1) load_plane(od * S + 2);
+    tc::cp_async_commit();
+
+    const unsigned slab = sbase + ((od * S + kd + 1) & 1) * L.slab;
+    const unsigned wsl = wbase + (g % 3) * L.wslot;
+#pragma unroll 1
+    for (int kc = 0; kc < L.CK / 16; ++kc) {
+      unsigned bfr[NT][2];
+      if constexpr (NT == 1) {
+        const int r = kc * 16 + (lane & 15);
+        unsigned t2[2];
+        tc::ldsm_x2_t(t2, wsl + (r * WCH + ((wn * NT) ^ wsw(r))) * 16);
+        bfr[0][0] = t2[0];
+        bfr[0][1] = t2[1];
       } else {
-        for (int q = tid; q < 9 * HKC * BN; q += 256) {
-          const int n = q % BN, kk = (q / BN) % HKC, t = q / (HKC * BN);
-          const int c = c0 + kk, f = n0 + n;
-          wts[(t * HKC + kk) * LDB + n] =
-              (c < C && f < F) ? w[((int64_t)(kd * 9 + t) * C + c) * F + f] : __float2bfloat16(0.f);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          const int r = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          const int ch = wn * NT + np * 2 + (lane >> 4);
+          unsigned t4[4];
+          tc::ldsm_x4_t(t4, wsl + (r * WCH + (ch ^ wsw(r))) * 16);
+          bfr[2 * np][0] = t4[0];
+          bfr[2 * np][1] = t4[1];
+          bfr[2 * np + 1][0] = t4[2];
+          bfr[2 * np + 1][1] = t4[3];
         }
       }
-      cp_async_wait<0>();
-      __syncthreads();
-#pragma unroll 1
-      for (int t = 0; t < 9; ++t) {
-        const int kh = t / 3, kw = t % 3;
-        const __nv_bfloat16* arow =
-            halo + ((kd * HHH + wr * S + kh) * HHW + wh * 16 * S + kw) * HVS;
 #pragma unroll
-        for (int kk = 0; kk < HKC; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, arow + kk, S * HVS);
+      for (int mi = 0; mi < 2 * WR; ++mi) {
+        const int row = (wm * WR + mi / 2) * S + kh;
+        const int col = ((mi & 1) * 16 + (lane & 15)) * S + kw;
+        const int v = row * L.HC + col;
+        const int ch = kc * 2 + (lane >> 4);
+        unsigned a[4];
+        tc::ldsm_x4(a, slab + (v * L.CP + (ch ^ xsw(v))) * 16);
 #pragma unroll
-          for (int j = 0; j < FN; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, wts + (t * HKC + kk) * LDB + j * 16, LDB);
-            wmma::mma_sync(acc[j], fa, fb, acc[j]);
+        for (int ni = 0; ni < NT; ++ni) tc::mma16816(acc[mi][ni], a, bfr[ni][0], bfr[ni][1]);
+      }
+    }
+
+    if (t == 26) {  // output plane od is complete
+#pragma unroll
+      for (int mi = 0; mi < 2 * WR; ++mi) {
+        const int oh = h0 + wm * WR + mi / 2;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int ow = w0 + (mi & 1) * 16 + gid + hr * 8;
+          if (oh < OH && ow < OW) {
+            const int64_t at = ((((int64_t)b * OD + od) * OH + oh) * OW + ow) * F;
+#pragma unroll
+            for (int ni = 0; ni < NT; ++ni)
+              store_pair(y, at, n0 + wn * WN + ni * 8 + tig * 2, F, acc[mi][ni][2 * hr],
+                         acc[mi][ni][2 * hr + 1], scale, bias, relu);
           }
         }
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
       }
     }
   }
-  __syncthreads();
-  float* cs = reinterpret_cast<float*>(smem);  // [HTH * HTW][LDC]
-#pragma unroll
-  for (int j = 0; j < FN; ++j)
-    wmma::store_matrix_sync(cs + (wr * HTW + wh * 16) * LDC + j * 16, acc[j], LDC,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int q = tid; q < HTH * HTW * BN; q += 256) {
-    const int n = q % BN, r = q / BN;
-    const int oh = h0 + r / HTW, ow = w0 + r % HTW, f = n0 + n;
-    if (oh >= OH || ow >= OW || f >= F) continue;
-    float v = fmaf(cs[r * LDC + n], scale[f], bias[f]);
-    if (relu) v = fmaxf(v, 0.f);
-    y[(((int64_t)b * OD + od) * OH + oh) * OW * F + (int64_t)ow * F + f] = __float2bfloat16(v);
-  }
 }
 
-template <int BN, bool VEC_W, int S>
-int launch_halo_cfg(const void* x, const void* w, const float* sc, const float* bi, void* y,
-                    int B, int D, int H, int W, int C, int F, int relu, cudaStream_t st) {
-  constexpr int HALO_ELEMS = 3 * ((HTH - 1) * S + 3) * ((HTW - 1) * S + 3) * HVS;
-  constexpr int pipe = (HALO_ELEMS + 9 * HKC * (BN + 8)) * 2;
-  constexpr int cbytes = HTH * HTW * (BN + 4) * 4;
-  constexpr int smem = pipe > cbytes ? pipe : cbytes;
-  auto kern = conv3d_halo_kernel<BN, VEC_W, S>;
+// C < 8: 128 output voxels x BN per block, the 27 taps x C channels packed
+// into one K = KP (27 C rounded up to 16) im2col tile.  Rows of both tiles
+// are padded by 16 bytes (an odd number of 16-byte chunks apart), so
+// ldmatrix reads 8 rows on 8 bank groups.
+template <int BN>
+__host__ __device__ constexpr int narrow_threads() {
+  return 4 * (BN < 32 ? 1 : BN / 32) * 32;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(narrow_threads<BN>())
+conv3d_narrow_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                     const float* __restrict__ scale, const float* __restrict__ bias,
+                     bf16* __restrict__ y, int D, int H, int W, int C, int F, int S, int OD,
+                     int OH, int OW, int64_t M, int relu) {
+  constexpr int WN = BN < 32 ? BN : 32;
+  constexpr int NT = WN / 8;
+  constexpr int WARPS_N = BN / WN;
+  constexpr int NTH = narrow_threads<BN>();
+  constexpr int BS = BN == 8 ? 8 : BN + 8;  // weight row stride (elements)
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int K = 27 * C, KP = (K + 15) & ~15, AS = KP + 8;
+  bf16* as = reinterpret_cast<bf16*>(smem);  // [128][AS]
+  bf16* bs = as + 128 * AS;                  // [KP][BS]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int64_t m0 = (int64_t)blockIdx.x * 128;
+  const int n0 = blockIdx.y * BN;
+  __shared__ int64_t rowb[128];  // voxel index of (b, 0, 0, 0)
+  __shared__ int rowd[128], rowh[128], roww[128];
+
+  for (int i = tid; i < 128; i += NTH) {
+    const int64_t m = m0 + i;
+    if (m < M) {
+      const int ow = (int)(m % OW);
+      int64_t t = m / OW;
+      const int oh = (int)(t % OH);
+      t /= OH;
+      rowb[i] = (t / OD) * D * H * W;
+      rowd[i] = (int)(t % OD) * S - 1;
+      rowh[i] = oh * S - 1;
+      roww[i] = ow * S - 1;
+    } else {  // rows past M read zeros and are not stored
+      rowb[i] = 0;
+      rowd[i] = rowh[i] = roww[i] = -4;
+    }
+  }
+  __syncthreads();
+  for (int q = tid; q < KP * BN; q += NTH) {
+    const int n = q % BN, r = q / BN, f = n0 + n;
+    bs[r * BS + n] = (r < K && f < F) ? w[(int64_t)r * F + f] : __float2bfloat16(0.f);
+  }
+  for (int q = tid; q < 128 * KP; q += NTH) {
+    const int r = q % KP, i = q / KP;
+    bf16 v = __float2bfloat16(0.f);
+    if (r < K) {
+      const int tap = r / C, c = r % C;
+      const int id = rowd[i] + tap / 9, ih = rowh[i] + (tap / 3) % 3, iw = roww[i] + tap % 3;
+      if (id >= 0 && id < D && ih >= 0 && ih < H && iw >= 0 && iw < W)
+        v = x[(rowb[i] + ((int64_t)id * H + ih) * W + iw) * C + c];
+    }
+    as[i * AS + r] = v;
+  }
+  __syncthreads();
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const unsigned abase = tc::smem_addr(as), bbase = tc::smem_addr(bs);
+#pragma unroll 1
+  for (int kc = 0; kc < KP / 16; ++kc) {
+    unsigned bfr[NT][2];
+    if constexpr (NT == 1) {
+      const int r = kc * 16 + (lane & 15);
+      unsigned t2[2];
+      tc::ldsm_x2_t(t2, bbase + (r * BS + wn * WN) * 2);
+      bfr[0][0] = t2[0];
+      bfr[0][1] = t2[1];
+    } else {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        const int r = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int n = wn * WN + np * 16 + (lane >> 4) * 8;
+        unsigned t4[4];
+        tc::ldsm_x4_t(t4, bbase + (r * BS + n) * 2);
+        bfr[2 * np][0] = t4[0];
+        bfr[2 * np][1] = t4[1];
+        bfr[2 * np + 1][0] = t4[2];
+        bfr[2 * np + 1][1] = t4[3];
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int row = wm * 32 + mi * 16 + (lane & 15);
+      unsigned a[4];
+      tc::ldsm_x4(a, abase + (row * AS + kc * 16 + (lane >> 4) * 8) * 2);
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) tc::mma16816(acc[mi][ni], a, bfr[ni][0], bfr[ni][1]);
+    }
+  }
+
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int64_t m = m0 + wm * 32 + mi * 16 + gid + hr * 8;
+      if (m >= M) continue;
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+        store_pair(y, m * F, n0 + wn * WN + ni * 8 + tig * 2, F, acc[mi][ni][2 * hr],
+                   acc[mi][ni][2 * hr + 1], scale, bias, relu);
+    }
+}
+
+constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may use
+constexpr int NUM_SMS = 132;      // H100 SXM: the grids aim at a few blocks per SM
+
+template <int TH, int WR, int BN, int MINB>
+int launch_tc_cfg(const void* x, const void* w, const float* sc, const float* bi, void* y, int B,
+                  int D, int H, int W, int C, int F, int S, int relu, cudaStream_t st) {
+  const int smem = TcLayout(C, S, TH, BN).bytes();
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kern = conv3d_tc_kernel<TH, WR, BN, MINB>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int OD = (D - 1) / S + 1, OH = (H - 1) / S + 1, OW = (W - 1) / S + 1;
-  const int tiles_w = (OW + HTW - 1) / HTW, tiles_h = (OH + HTH - 1) / HTH;
-  if ((int64_t)B * OD > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid(tiles_w * tiles_h, B * OD, (F + BN - 1) / BN);
-  kern<<<grid, 256, smem, st>>>(static_cast<const __nv_bfloat16*>(x),
-                                static_cast<const __nv_bfloat16*>(w), sc, bi,
-                                static_cast<__nv_bfloat16*>(y), D, H, W, C, F, OD, OH, OW, relu,
-                                tiles_w);
+  const int tiles_w = (OW + TW - 1) / TW, tiles_h = (OH + TH - 1) / TH;
+  const int fblocks = (F + BN - 1) / BN;
+  // split the output planes so that the grid holds about four blocks per SM
+  const int64_t base = (int64_t)tiles_w * tiles_h * B * fblocks;
+  int nsplit = (int)std::min<int64_t>(OD, (4 * NUM_SMS + base - 1) / base);
+  const int dper = (OD + nsplit - 1) / nsplit;
+  nsplit = (OD + dper - 1) / dper;
+  if ((int64_t)B * nsplit > 65535 || (int64_t)tiles_w * tiles_h > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(tiles_w * tiles_h, B * nsplit, fblocks);
+  kern<<<grid, tc_threads<TH, WR, BN>(), smem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), sc, bi, static_cast<bf16*>(y), D,
+      H, W, C, F, S, OD, OH, OW, relu, tiles_w, nsplit, dper);
   return (int)cudaGetLastError();
 }
 
-// Tile width follows F, so that the Cout=1 classifier conv wastes 15 of 16
-// columns rather than 63 of 64.
-template <int S>
-int launch_halo(const void* x, const void* w, const float* sc, const float* bi, void* y, int B,
-                int D, int H, int W, int C, int F, int relu, cudaStream_t st) {
-  const bool vec = F % 8 == 0;
-  if (F <= 16)
-    return vec ? launch_halo_cfg<16, true, S>(x, w, sc, bi, y, B, D, H, W, C, F, relu, st)
-               : launch_halo_cfg<16, false, S>(x, w, sc, bi, y, B, D, H, W, C, F, relu, st);
-  if (F <= 32)
-    return vec ? launch_halo_cfg<32, true, S>(x, w, sc, bi, y, B, D, H, W, C, F, relu, st)
-               : launch_halo_cfg<32, false, S>(x, w, sc, bi, y, B, D, H, W, C, F, relu, st);
-  return vec ? launch_halo_cfg<64, true, S>(x, w, sc, bi, y, B, D, H, W, C, F, relu, st)
-             : launch_halo_cfg<64, false, S>(x, w, sc, bi, y, B, D, H, W, C, F, relu, st);
+// Registers against blocks per SM, as measured on the main-path shapes:
+// 4-warp blocks at most 170 registers a thread (three per SM); 8-warp ones
+// (BN = 64) at most 128 (two per SM) where the halo is small (stride 2, or
+// C <= 32), else what they need (one per SM), as 128 made those spill.
+template <int TH, int WR>
+int launch_tc_bn(const void* x, const void* w, const float* sc, const float* bi, void* y, int B,
+                 int D, int H, int W, int C, int F, int S, int relu, cudaStream_t st) {
+  if (F <= 8) return launch_tc_cfg<TH, WR, 8, 3>(x, w, sc, bi, y, B, D, H, W, C, F, S, relu, st);
+  if (F <= 32) return launch_tc_cfg<TH, WR, 32, 3>(x, w, sc, bi, y, B, D, H, W, C, F, S, relu, st);
+  if (S == 1 && C > 32)
+    return launch_tc_cfg<TH, WR, 64, 1>(x, w, sc, bi, y, B, D, H, W, C, F, S, relu, st);
+  return launch_tc_cfg<TH, WR, 64, 2>(x, w, sc, bi, y, B, D, H, W, C, F, S, relu, st);
+}
+
+// Tile height by stride and width: the two plane slots must fit beside the
+// weight slots (stride 1: 8 rows up to 128 channels; stride 2: 4 rows up to
+// 64 channels, 2 above).
+int launch_tc(const void* x, const void* w, const float* sc, const float* bi, void* y, int B,
+              int D, int H, int W, int C, int F, int S, int relu, cudaStream_t st) {
+  if (S == 1) return launch_tc_bn<8, 2>(x, w, sc, bi, y, B, D, H, W, C, F, S, relu, st);
+  return C <= 64 ? launch_tc_bn<4, 1>(x, w, sc, bi, y, B, D, H, W, C, F, S, relu, st)
+                 : launch_tc_bn<2, 1>(x, w, sc, bi, y, B, D, H, W, C, F, S, relu, st);
+}
+
+template <int BN>
+int launch_narrow_cfg(const void* x, const void* w, const float* sc, const float* bi, void* y,
+                      int B, int D, int H, int W, int C, int F, int S, int relu, cudaStream_t st) {
+  const int KP = (27 * C + 15) & ~15;
+  const int smem = (128 * (KP + 8) + KP * (BN == 8 ? 8 : BN + 8)) * 2;
+  auto kern = conv3d_narrow_kernel<BN>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int OD = (D - 1) / S + 1, OH = (H - 1) / S + 1, OW = (W - 1) / S + 1;
+  const int64_t M = (int64_t)B * OD * OH * OW;
+  const int64_t gx = (M + 127) / 128;
+  if (gx > 2147483647LL) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)gx, (F + BN - 1) / BN);
+  kern<<<grid, narrow_threads<BN>(), smem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), sc, bi, static_cast<bf16*>(y), D,
+      H, W, C, F, S, OD, OH, OW, M, relu);
+  return (int)cudaGetLastError();
+}
+
+int launch_narrow(const void* x, const void* w, const float* sc, const float* bi, void* y, int B,
+                  int D, int H, int W, int C, int F, int S, int relu, cudaStream_t st) {
+  if (F <= 8) return launch_narrow_cfg<8>(x, w, sc, bi, y, B, D, H, W, C, F, S, relu, st);
+  if (F <= 32) return launch_narrow_cfg<32>(x, w, sc, bi, y, B, D, H, W, C, F, S, relu, st);
+  return launch_narrow_cfg<64>(x, w, sc, bi, y, B, D, H, W, C, F, S, relu, st);
 }
 
 template <int BM, int BN, int TM, int TN>
@@ -320,8 +572,8 @@ int launch_fp32(const void* x, const void* w, const float* sc, const float* bi, 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and y; bf16 needs C % 8 == 0);
-// scale/bias are float32 [F].  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16 (x, w and y; bf16 takes C % 8 == 0 or
+// C < 8); scale/bias are float32 [F].  Returns a cudaError_t (0 = launched).
 extern "C" int conv3d_bn_act(const void* x, const void* w, const void* scale, const void* bias,
                              void* y, int B, int D, int H, int W, int C, int F, int stride,
                              int relu, int dtype, void* stream) {
@@ -331,9 +583,7 @@ extern "C" int conv3d_bn_act(const void* x, const void* w, const void* scale, co
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
   if (dtype == 0) return launch_fp32(x, w, sc, bi, y, B, D, H, W, C, F, stride, relu, st);
-  if (dtype == 1 && C % 8 == 0) {
-    if (stride == 1) return launch_halo<1>(x, w, sc, bi, y, B, D, H, W, C, F, relu, st);
-    return launch_halo<2>(x, w, sc, bi, y, B, D, H, W, C, F, relu, st);
-  }
+  if (dtype == 1 && C < 8) return launch_narrow(x, w, sc, bi, y, B, D, H, W, C, F, stride, relu, st);
+  if (dtype == 1 && C % 8 == 0) return launch_tc(x, w, sc, bi, y, B, D, H, W, C, F, stride, relu, st);
   return (int)cudaErrorInvalidValue;
 }

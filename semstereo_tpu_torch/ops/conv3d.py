@@ -13,9 +13,11 @@
   forward is K1 with scale 1 and bias 0; its backward follows ``_vjp_bwd``:
   the ReLU mask from the saved output, the stride-1 dx as K1 on the output
   gradient with the flipped, channel-swapped weight, the stride-2 dx as the
-  k3 s2 p1 transposed conv and dw as 27 tap contractions (both left to
-  library calls, as the JAX package leaves them to XLA).  ``conv3d_plain``
-  (fp32 ``F.conv3d`` and autograd) is its yardstick.
+  k3 s2 p1 transposed conv (a library call, as the JAX package leaves it to
+  XLA) and dw by ``conv3d_weight_grad``, which on a CUDA tensor launches the
+  hand-written Hopper kernel ``csrc/conv3d_wgrad.cu`` and on a CPU tensor
+  runs ``conv3d_weight_grad_plain`` (27 tap contractions).
+  ``conv3d_plain`` (fp32 ``F.conv3d`` and autograd) is the yardstick.
 """
 
 from __future__ import annotations
@@ -77,8 +79,8 @@ def conv3d_bn_act(x, w, scale, bias, stride: int = 1, relu: bool = False):
         raise ValueError(f"conv3d_bn_act: no kernel for device {x.device}")
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"conv3d_bn_act: x {x.dtype}, w {w.dtype} (takes float32 or bfloat16, alike)")
-    if x.dtype == torch.bfloat16 and x.shape[4] % 8:
-        raise ValueError(f"conv3d_bn_act: bf16 kernel takes C % 8 == 0, got C={x.shape[4]}")
+    if x.dtype == torch.bfloat16 and x.shape[4] % 8 and x.shape[4] > 8:
+        raise ValueError(f"conv3d_bn_act: bf16 kernel takes C % 8 == 0 or C < 8, got C={x.shape[4]}")
     if scale.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError("conv3d_bn_act: scale and bias must be float32")
     for name, t in (("x", x), ("w", w), ("scale", scale), ("bias", bias)):
@@ -123,18 +125,11 @@ def conv3d_plain(x, w, stride: int = 1, relu: bool = False):
 
 def conv3d_input_grad_s1(gy, w3):
     """dx of the stride-1 conv: the stride-1 conv of gy with the flipped,
-    channel-swapped weight, through ``conv3d_bn_act`` (K1 on the card).
-    gy [B,D,H,W,F], w3 [3,3,3,C,F] -> [B,D,H,W,C].  The bf16 kernel takes
-    C % 8 == 0, so a narrow gy (the F=1 classifier conv) and the weight
-    are zero-padded to 8 channels."""
+    channel-swapped weight, through ``conv3d_bn_act`` (K1 on the card; a
+    one-channel gy, from a Cout=1 conv, takes its narrow-input path).
+    gy [B,D,H,W,F], w3 [3,3,3,C,F] -> [B,D,H,W,C]."""
     wflip = torch.flip(w3, (0, 1, 2)).transpose(3, 4)  # [3,3,3,F,C]
-    f = gy.shape[-1]
-    pad = -f % 8 if gy.dtype == torch.bfloat16 else 0
-    if pad:
-        gy = F.pad(gy, (0, pad))
-        wflip = F.pad(wflip, (0, 0, 0, pad))
-    c = w3.shape[3]
-    ones = torch.ones(c, dtype=torch.float32, device=gy.device)
+    ones = torch.ones(w3.shape[3], dtype=torch.float32, device=gy.device)
     dx = conv3d_bn_act(gy.contiguous(), wflip.contiguous(), ones, torch.zeros_like(ones), 1)
     if dx.is_cuda:
         conv3d_input_grad_s1.launches += 1
@@ -157,9 +152,10 @@ def conv3d_input_grad_s2(gy, w, in_dims):
     return dx.permute(0, 2, 3, 4, 1)
 
 
-def conv3d_weight_grad(x, gy, stride: int):
-    """dw [3,3,3,C,F]: for each of the 27 taps, the [C, M] x [M, F]
-    contraction of the input voxels the tap reads with gy.
+def conv3d_weight_grad_plain(x, gy, stride: int):
+    """Plain PyTorch version of ``conv3d_weight_grad``: for each of the 27
+    taps, the [C, M] x [M, F] contraction of the input voxels the tap reads
+    with gy.
 
     Every tap is one matrix product on contiguous row ranges, with no copy
     per tap: x is zero-padded and split into its stride**3 phases (for
@@ -192,6 +188,59 @@ def conv3d_weight_grad(x, gy, stride: int):
     return torch.stack(taps).reshape(3, 3, 3, c, f)
 
 
+def _wgrad_lib():
+    lib = _build.load("conv3d_wgrad")
+    if lib.conv3d_wgrad.argtypes is None:
+        lib.conv3d_wgrad.argtypes = [_P, _P, _P] + [_I] * 9 + [_P]
+        lib.conv3d_wgrad.restype = ctypes.c_int
+        lib.conv3d_wgrad_splits.argtypes = [_I] * 8
+        lib.conv3d_wgrad_splits.restype = ctypes.c_int
+    return lib
+
+
+def conv3d_weight_grad(x, gy, stride: int):
+    """dw [3,3,3,C,F] of the 3x3x3 pad-1 conv, in x's dtype:
+    dw[tap, c, f] = sum over output voxels o of x[b, s*o - 1 + tap, c] *
+    gy[b, o, f], with fp32 sums.  x [B,D,H,W,C], gy [B,OD,OH,OW,F].
+
+    On a CUDA tensor it launches ``csrc/conv3d_wgrad.cu`` (bf16 tensor
+    cores, or fp32 CUDA cores), which writes fp32 partial sums per voxel
+    split; their sum over the splits, in a fixed order, is dw."""
+    if x.dim() != 5 or gy.dim() != 5 or stride not in (1, 2):
+        raise ValueError(f"conv3d_weight_grad: x {tuple(x.shape)}, gy {tuple(gy.shape)}, "
+                         f"stride {stride}")
+    b, d, h, w, c = x.shape
+    f = gy.shape[4]
+    if tuple(gy.shape[:4]) != (b, *out_dims(d, h, w, stride)):
+        raise ValueError(f"conv3d_weight_grad: gy {tuple(gy.shape)} is not the stride-{stride} "
+                         f"output of x {tuple(x.shape)}")
+    if x.device.type == "cpu" and gy.device.type == "cpu":
+        return conv3d_weight_grad_plain(x, gy, stride)
+    if x.device.type != "cuda" or gy.device != x.device:
+        raise ValueError(f"conv3d_weight_grad: no kernel for x on {x.device}, gy on {gy.device}")
+    if x.dtype not in _DTYPES or gy.dtype != x.dtype:
+        raise TypeError(f"conv3d_weight_grad: x {x.dtype}, gy {gy.dtype} "
+                        "(takes float32 or bfloat16, alike)")
+    if x.dtype == torch.bfloat16 and c % 8:
+        raise ValueError(f"conv3d_weight_grad: bf16 kernel takes C % 8 == 0, got C={c}")
+    if not (x.is_contiguous() and gy.is_contiguous()):
+        raise ValueError("conv3d_weight_grad: x and gy must be contiguous")
+    lib = _wgrad_lib()
+    dt = _DTYPES[x.dtype]
+    splits = lib.conv3d_wgrad_splits(b, d, h, w, c, f, stride, dt)
+    part = torch.empty((splits, 27, c, f), dtype=torch.float32, device=x.device)
+    err = lib.conv3d_wgrad(x.data_ptr(), gy.data_ptr(), part.data_ptr(), splits, b, d, h, w, c,
+                           f, stride, dt, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "conv3d_weight_grad")
+    conv3d_weight_grad.launches += 1
+    return part.sum(0).reshape(3, 3, 3, c, f).to(x.dtype)
+
+
+# Kernel launches; the smoke run reads them to show that the train path's
+# dw went through the kernel.
+conv3d_weight_grad.launches = 0
+
+
 class _Conv3d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, stride, relu):
@@ -215,7 +264,8 @@ class _Conv3d(torch.autograd.Function):
             else:
                 dx = conv3d_input_grad_s2(gy, w, x.shape[1:4])
         if ctx.needs_input_grad[1]:
-            dw = conv3d_weight_grad(x, gy, ctx.stride).permute(4, 3, 0, 1, 2).to(w.dtype)
+            dw = conv3d_weight_grad(x.contiguous(), gy, ctx.stride).permute(4, 3, 0, 1, 2)
+            dw = dw.to(w.dtype)
         return dx, dw, None, None
 
 

@@ -32,8 +32,10 @@ TIMED = 5  # unprofiled runs timed before the profiled ones
 
 # substrings of kernel names -> group (first match wins)
 GROUPS = [
-    ("conv3d_halo_kernel", "K1 conv3d (hand, tensor cores)"),
+    ("conv3d_tc_kernel", "K1 conv3d (hand, tensor cores)"),
+    ("conv3d_narrow_kernel", "K1 conv3d (hand, C < 8)"),
     ("conv3d_kernel", "K1 conv3d (hand, CUDA cores)"),
+    ("::wgrad_", "K3 conv3d dw (hand)"),
     ("gwc_volume_bwd_kernel", "K4 gwc_volume_bwd (hand)"),
     ("gwc_volume_kernel", "K2 gwc_volume (hand)"),
     ("conv", "cuDNN conv/deconv"),

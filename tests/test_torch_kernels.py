@@ -215,13 +215,17 @@ CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-# both strides at each tile width of csrc/conv3d.cu (16, 32, 64 columns;
-# weights by cp.async or, for F % 8 != 0, plain loads), ragged tiles, and
-# several channel chunks
+# both strides at each output-block width of csrc/conv3d.cu (8, 32, 64
+# columns; weights by cp.async or, for F % 8 != 0, plain loads) and each
+# tile height (C up to 64 and above), ragged tiles, C = 40 (a padded
+# channel step), the narrow-input path (C = 1, C = 4), and D = 7 and 5, not
+# multiples of the three-plane ring, split over blocks
 @pytest.mark.parametrize("xshape,f,stride", [
     ((1, 8, 32, 32, 32), 64, 2), ((1, 8, 64, 64, 32), 64, 1), ((1, 12, 40, 36, 64), 64, 1),
     ((1, 4, 16, 16, 64), 128, 2), ((1, 6, 32, 32, 128), 128, 1), ((1, 6, 16, 16, 64), 32, 1),
     ((1, 6, 16, 16, 32), 1, 1), ((2, 5, 7, 9, 40), 3, 2), ((1, 3, 5, 7, 16), 40, 1),
+    ((2, 6, 16, 40, 1), 32, 1), ((1, 5, 7, 9, 4), 8, 2), ((1, 7, 16, 40, 32), 32, 1),
+    ((2, 5, 12, 66, 32), 64, 2),
 ])
 def test_conv_kernel_matches_plain(cuda, dtype, xshape, f, stride):
     x, k, scale, bias = _conv_inputs(40, xshape, f)
@@ -235,6 +239,8 @@ def test_conv_kernel_matches_plain(cuda, dtype, xshape, f, stride):
 
 
 def test_conv_kernel_rejects_bf16_with_ragged_channels(cuda):
+    """C > 8 and not a multiple of 8 is refused; C < 8 takes the narrow path
+    (test_conv_kernel_matches_plain)."""
     x = torch.zeros(1, 3, 5, 7, 12, dtype=torch.bfloat16, device=cuda)
     w = torch.zeros(3, 3, 3, 12, 4, dtype=torch.bfloat16, device=cuda)
     ones = torch.ones(4, device=cuda)

@@ -8,6 +8,9 @@ CPU in fp32, and the kernels against their plain versions on the card.
   ``lax.conv_general_dilated``.  Tolerance rtol 1e-4 and atol 1e-3 on the
   gradients (dw sums thousands of fp32 products in another order), 1e-4
   on y.
+  ``conv3d_weight_grad_plain`` (the dw that CPU tensors take) alone against
+  the kernel gradient of ``lax.conv_general_dilated``'s VJP, stride 1 and
+  2, Cout=1 included.
 * K4, the backward of ``ops.gwc_volume_norm``: against the gradient of
   ``gwc_volume_norm_pallas`` (its Pallas backward) in interpret mode,
   symmetric and positive, with one all-zero channel group, rtol 1e-4,
@@ -27,7 +30,14 @@ import torch
 
 from semstereo_tpu_torch.nn import BatchNorm
 from semstereo_tpu_torch.ops import cost_volume
-from semstereo_tpu_torch.ops.conv3d import conv3d, conv3d_input_grad_s1, conv3d_plain, out_dims
+from semstereo_tpu_torch.ops.conv3d import (
+    conv3d,
+    conv3d_input_grad_s1,
+    conv3d_plain,
+    conv3d_weight_grad,
+    conv3d_weight_grad_plain,
+    out_dims,
+)
 
 GRAD_TOL = dict(rtol=1e-4, atol=1e-3)
 
@@ -109,13 +119,41 @@ def test_conv3d_vjp_matches_lax(jx, xshape, f, stride, relu):
     np.testing.assert_allclose(dw, np.asarray(dk_j), **GRAD_TOL)
 
 
+@pytest.mark.parametrize("xshape,f,stride", [((2, 4, 6, 10, 8), 1, 1), ((1, 5, 7, 9, 16), 3, 2)])
+def test_conv3d_weight_grad_plain_matches_lax(jx, xshape, f, stride):
+    rng = np.random.default_rng(57)
+    x = _rand(rng, xshape)
+    k = _rand(rng, (3, 3, 3, xshape[-1], f), 0.1)
+    gy = _rand(rng, (xshape[0], *out_dims(*xshape[1:4], stride), f))
+    lax, jnp = jx["lax"], jx["jnp"]
+
+    def ref(b):
+        return lax.conv_general_dilated(jnp.asarray(x), b, (stride,) * 3, [(1, 1)] * 3,
+                                        dimension_numbers=("NDHWC", "DHWIO", "NDHWC"))
+
+    _, vjp = jx["jax"].vjp(ref, jnp.asarray(k))
+    (dk_j,) = vjp(jnp.asarray(gy))
+    dw = conv3d_weight_grad_plain(torch.from_numpy(x), torch.from_numpy(gy), stride)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(dk_j), **GRAD_TOL)
+
+
 def test_conv3d_counts_no_launch_on_the_cpu():
-    before = conv3d_input_grad_s1.launches
+    before = (conv3d_input_grad_s1.launches, conv3d_weight_grad.launches)
     x = torch.randn(1, 3, 4, 5, 8, requires_grad=True)
     w = torch.randn(4, 8, 3, 3, 3, requires_grad=True)
     conv3d(x, w).sum().backward()
-    assert conv3d_input_grad_s1.launches == before
+    assert (conv3d_input_grad_s1.launches, conv3d_weight_grad.launches) == before
     assert x.grad.shape == x.shape and w.grad.shape == w.shape
+
+
+def test_conv3d_weight_grad_rejects_a_misshapen_gy_and_other_devices():
+    x = torch.zeros(1, 5, 6, 7, 8)
+    with pytest.raises(ValueError, match="gy"):
+        conv3d_weight_grad(x, torch.zeros(1, 5, 6, 6, 4), 1)
+    with pytest.raises(ValueError, match="gy"):
+        conv3d_weight_grad(x, torch.zeros(1, 5, 6, 7, 4), 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        conv3d_weight_grad(x.to("meta"), torch.zeros(1, 5, 6, 7, 4, device="meta"), 1)
 
 
 def test_conv3d_rejects_a_non_3x3x3_weight():
@@ -264,11 +302,18 @@ def _max_rel(got, want):
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("xshape,f,stride", [
+# the dw kernel's edges: voxel counts that no 4 x 32 (stride 1) or 2 x 32
+# (stride 2) tile divides, F = 1 (one n8 column tile), C = 8, stride 2 with
+# odd extents, batch 2, and D = 2, fewer planes than the K1 plane ring
+CONV_GRAD_SHAPES = [
     ((2, 8, 32, 32, 32), 64, 2), ((2, 8, 32, 32, 64), 64, 1), ((2, 6, 16, 16, 32), 1, 1),
-    ((1, 5, 7, 9, 16), 8, 2),
-])
+    ((1, 5, 7, 9, 16), 8, 2), ((2, 5, 7, 9, 8), 1, 1), ((2, 7, 9, 11, 8), 24, 2),
+    ((2, 2, 6, 70, 32), 32, 1), ((1, 3, 5, 36, 128), 128, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xshape,f,stride", CONV_GRAD_SHAPES)
 def test_conv3d_kernel_backward_matches_plain(cuda, dtype, xshape, f, stride):
     rng = np.random.default_rng(55)
     x = torch.from_numpy(_rand(rng, xshape)).to(cuda, dtype).requires_grad_()
@@ -284,6 +329,22 @@ def test_conv3d_kernel_backward_matches_plain(cuda, dtype, xshape, f, stride):
     for g, w_ in zip(got, want):
         assert g.dtype == dtype
         assert _max_rel(g, w_) <= CARD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xshape,f,stride", CONV_GRAD_SHAPES)
+def test_conv3d_weight_grad_kernel_matches_plain(cuda, dtype, xshape, f, stride):
+    rng = np.random.default_rng(58)
+    x = torch.from_numpy(_rand(rng, xshape)).to(cuda, dtype)
+    gy = torch.from_numpy(_rand(rng, (xshape[0], *out_dims(*xshape[1:4], stride), f)))
+    gy = gy.to(cuda, dtype)
+    before = conv3d_weight_grad.launches
+    got = conv3d_weight_grad(x, gy, stride)
+    torch.cuda.synchronize()
+    assert conv3d_weight_grad.launches == before + 1
+    want = conv3d_weight_grad_plain(x.float(), gy.float(), stride)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _max_rel(got, want) <= CARD_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
