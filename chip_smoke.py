@@ -29,7 +29,8 @@
    batch, and K4 ``gwc_volume_bwd`` at the main-path shape, symmetric and
    positive, bf16 and fp32, against their plain versions (K3's dw also
    alone against ``conv3d_weight_grad_plain``; K4 also against autograd of
-   the plain forward): errors, device times of each part, bound, and as
+   the plain forward, with its resident blocks per SM and shared memory
+   per block): errors, device times of each part, bound, and as
    yardsticks the port never calls, cuDNN's whole backward (autograd of
    ``F.conv3d``), its dgrad alone and its wgrad alone
    (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``).
@@ -479,7 +480,11 @@ def check_k3(gen, scrub):
 
 def check_k4(ops, gen, scrub):
     """K4 at the main path's shape: against the plain closed form and
-    against autograd of the plain forward."""
+    against autograd of the plain forward; with its resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and dynamic shared
+    memory per block."""
+    from semstereo_tpu_torch.ops.cost_volume import gwc_volume_bwd_occupancy
+
     rows = []
     (b, h, w, c), g, s = K4_SHAPE
     for dtype in (torch.bfloat16, torch.float32):
@@ -502,9 +507,11 @@ def check_k4(ops, gen, scrub):
             flops = 2 * 2.0 * d * b * h * w * c + 8.0 * 2 * b * h * w * c  # yl, yr; norm VJPs
             nbytes = (4 * left.numel() + gbar.numel()) * size
             b_ms, b_by = bound_ms(nbytes, flops, dtype)
+            blocks, smem = gwc_volume_bwd_occupancy(c, g, d, dtype)
             row = dict(
                 kernel="K4", name="gwc_volume_bwd " + ("symmetric" if symmetric else "positive"),
-                dtype=str(dtype)[6:], shape=[b, h, w, c], G=g, D=d,
+                dtype=str(dtype)[6:], shape=[b, h, w, c], G=g, D=d, blocks_per_sm=blocks,
+                smem_bytes=smem,
                 max_abs_err=max(e for e, _ in errs), max_rel_err=max(r for _, r in errs),
                 max_rel_err_autograd=max(r for _, r in errs_auto),
                 ms=timed_ms(lambda: ops.gwc_volume_norm_bwd(left, right, gbar, s, g, symmetric),
@@ -695,6 +702,8 @@ def main() -> int:
             entry["launches_dw"] = train["launches"]["K3-dw"]
             entry.update({k: sum(r[k] for r in mine) for k in (
                 "dx_k1_ms", "s2_dx_ms", "dw_ms", "dx_library_ms", "dw_library_ms")})
+        if name == "K4":
+            entry.update(blocks_per_sm=mine[0]["blocks_per_sm"], smem_bytes=mine[0]["smem_bytes"])
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

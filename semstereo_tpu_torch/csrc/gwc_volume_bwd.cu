@@ -11,199 +11,278 @@
 //   gl = yl/(n+eps) - l (l.yl)_g / (max(n, 1e-30) (n+eps)^2)   (gr likewise).
 //
 // What bounds it on the card: memory.  At the main-path shape (B=2, C=256,
-// G=32, D=16 on 128x128) it reads l, r (2 x 16.8 MB bf16) and gb (33.6 MB)
-// and writes gl, gr (2 x 16.8 MB) for about 1 GFLOP.  The design reads each
-// input once per block and never writes an intermediate: one block per
-// (b, h, TW-column tile) stages, in the input dtype, l and gb over the
-// columns the tile's yr reads (x0 + s_lo .. x0 + TW - 1 + s_hi) and r over
-// those its yl reads (x0 - s_hi .. x0 + TW - 1 - s_lo), both windows holding
-// the tile itself.  gb is masked to 0 as it is staged, so the sums need no
-// tests; yr is written in gather form (one thread per output element sums
-// over d), so no atomics are needed.  The group norms are computed once per
-// staged column; yl and yr are kept in fp32 in shared memory for the
-// per-group dot product of the norm VJP, which then runs per (x, g) and
-// stores per (x, c), consecutive threads on consecutive channels.
+// G=32, D=16 on 128x128, bf16) it reads l, r (2 x 16.8 MB) and gb (33.6 MB)
+// and writes gl, gr (2 x 16.8 MB): 100.7 MB, 30 us at 3.35 TB/s, for about
+// 1 GFLOP.
+//
+// The design is a streaming row kernel.  One block takes one image row
+// (b, h) and walks it in tiles of TW output columns.  The tile at x0 reads
+// l and gb over columns x0 + s_lo .. x0 + TW - 1 + s_hi (yr gathers
+// u[x + s_d] and gb[d, x + s_d]; yl takes gb at the tile itself) and r over
+// x0 - s_hi .. x0 + TW - 1 - s_lo (yl gathers v[x - s_d]), so the windows of
+// neighbouring tiles overlap by D - 1 columns.  Rather than restage that
+// overlap per tile (1.9x the bytes for independent 16-column tiles), the
+// three streams enter a ring in shared memory in chunks of TW columns, each
+// chunk once, by 16-byte cp.async (one plane of gb over a chunk is one
+// contiguous run).  The loads of the next STAGES - 1 tiles' chunks are in
+// flight while a tile computes.  Whole rows were chosen over column
+// segments because they read each byte once and need no halo; they give
+// B*H blocks (256 at the main shape), about two per SM, and two blocks' rings
+// (48 columns at D = 16, 108 KB in bf16) fit an SM.  On the H100 16-column
+// tiles of 512 threads (registers capped at 64 for two blocks per SM) took
+// 0.0997 ms at the main shape, 8-column tiles of 256 threads (three blocks
+// per SM) 0.1048: the tile loop is bound by instruction throughput and latency,
+// not by device memory, which it drives at about a third of its rate.
+//
+// One thread owns one (tile column, group): cpg = 8 channels, fixed at
+// compile time with G (C = 8 G, as the model's groups = C / 8), so the
+// thread map has no runtime division.  It sums yl and yr over d in fp32
+// registers, takes the norm VJP's per-group dot product in registers and
+// writes each side's 8 outputs as 16-byte stores.  The group norms of a
+// chunk are computed once, as it lands, by the threads that copied it.
+//
+// Masking: a column outside [0, W) is zero-filled by its copy, which zeroes
+// every yr term it feeds (l and gb alike); yl's term at (d, x) is dropped at
+// the point of use where x - s_d leaves [0, W), so a non-finite gb there
+// does not reach the result, as in the JAX kernel.  Sums are in fp32; the
+// outputs are rounded once to the input dtype.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
 
+#include "tc.cuh"
+
 namespace {
 
-constexpr int TW = 16;  // output columns per block
-constexpr int THREADS = 256;
+constexpr int TW = 16;     // output columns per tile; columns per ring chunk
+constexpr int CPG = 8;     // channels per group
+constexpr int STAGES = 2;  // tiles whose chunks the ring holds: the one computing, the rest loading
 constexpr float EPS = 1e-5f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+__device__ __forceinline__ void from_f(float v, float& o) { o = v; }
+__device__ __forceinline__ void from_f(float v, __nv_bfloat16& o) { o = __float2bfloat16(v); }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-// Shared memory, with S = TW + D - 1 staged columns:
-//   ls [S][C], rs [S][C], gs [D][S][G] in T;
-//   nl, nr [S][G] (group norms), il, ir [S][G] (1 / (norm + eps)),
-//   yl, yr [TW][C], kl, kr [TW][G] in fp32.
+// One group's CPG values at p (16-byte aligned) as floats, and back.
 template <typename T>
-size_t smem_bytes(int C, int G, int D) {
-  const size_t S = TW + D - 1;
-  return sizeof(T) * (2 * S * C + (size_t)D * S * G) +
-         sizeof(float) * (4 * S * G + 2 * (size_t)TW * C + 2 * (size_t)TW * G);
+__device__ __forceinline__ void load_group(const T* p, float (&f)[CPG]) {
+  constexpr int N = CPG * sizeof(T) / 16;
+  uint4 raw[N];
+  for (int m = 0; m < N; ++m) raw[m] = reinterpret_cast<const uint4*>(p)[m];
+  const T* e = reinterpret_cast<const T*>(raw);
+  for (int c = 0; c < CPG; ++c) f[c] = to_f(e[c]);
+}
+template <typename T>
+__device__ __forceinline__ void store_group(T* p, const float (&f)[CPG]) {
+  constexpr int N = CPG * sizeof(T) / 16;
+  uint4 raw[N];
+  T* e = reinterpret_cast<T*>(raw);
+  for (int c = 0; c < CPG; ++c) from_f(f[c], e[c]);
+  for (int m = 0; m < N; ++m) reinterpret_cast<uint4*>(p)[m] = raw[m];
 }
 
+__device__ __forceinline__ float inv_norm(const float (&x)[CPG]) {
+  float ss = 0.f;
+  for (int c = 0; c < CPG; ++c) ss = fmaf(x[c], x[c], ss);
+  return 1.f / (sqrtf(ss) + EPS);
+}
+
+// y <- the VJP of x -> x/(|x| + eps) for one group at cotangent y.
+__device__ __forceinline__ void norm_vjp(const float (&x)[CPG], float (&y)[CPG]) {
+  float ss = 0.f, dot = 0.f;
+  for (int c = 0; c < CPG; ++c) {
+    ss = fmaf(x[c], x[c], ss);
+    dot = fmaf(x[c], y[c], dot);
+  }
+  const float n = sqrtf(ss), inv = 1.f / (n + EPS);
+  const float coef = dot * inv * inv / fmaxf(n, 1e-30f);
+  for (int c = 0; c < CPG; ++c) y[c] = y[c] * inv - x[c] * coef;
+}
+
+// The ring: chunks one tile's window spans, plus STAGES - 1 tiles' worth
+// loading, TW columns each.  Ring column k holds ls [k][C], rs [k][C],
+// gs [k][D][G] in T and il, ir [k][G] = 1 / (group norm + eps) in fp32.
+__host__ __device__ __forceinline__ int window_chunks(int D) { return 1 + (D + TW - 2) / TW; }
+__host__ __device__ __forceinline__ int ring_chunks(int D) { return window_chunks(D) + STAGES - 1; }
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+size_t smem_bytes(int G, int D) {
+  const size_t cols = (size_t)ring_chunks(D) * TW;
+  return cols * (sizeof(T) * (2 * CPG + (size_t)D) * G + sizeof(float) * 2 * G);
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(TW * G, 2)
 gwc_volume_bwd_kernel(const T* __restrict__ left, const T* __restrict__ right,
                       const T* __restrict__ gbar, T* __restrict__ gleft, T* __restrict__ gright,
-                      int H, int W, int C, int G, int shift_lo, int D) {
-  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+                      int H, int W, int lo, int D) {
+  constexpr int C = CPG * G, NT = TW * G;
+  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int GRP = CPG / EPC;       // copies per group
+  constexpr int RUN = NT / EPC;        // copies per plane of gb in one chunk
   extern __shared__ __align__(16) unsigned char smem[];
-  const int S = TW + D - 1;
-  const int cpg = C / G;
+  const int hi = lo + D - 1;
+  const int nwin = window_chunks(D), nring = ring_chunks(D), cols = nring * TW;
   T* ls = reinterpret_cast<T*>(smem);
-  T* rs = ls + S * C;
-  T* gs = rs + S * C;
-  float* nl = reinterpret_cast<float*>(gs + D * S * G);
-  float* nr = nl + S * G;
-  float* il = nr + S * G;
-  float* ir = il + S * G;
-  float* yl = ir + S * G;
-  float* yr = yl + TW * C;
-  float* kl = yr + TW * C;
-  float* kr = kl + TW * G;
+  T* rs = ls + cols * C;
+  T* gs = rs + cols * C;
+  float* il = reinterpret_cast<float*>(gs + cols * D * G);
+  float* ir = il + cols * G;
 
-  const int x0 = blockIdx.x * TW, h = blockIdx.y, b = blockIdx.z;
+  const int i = threadIdx.x / G, g = threadIdx.x % G;  // this thread's column and group
+  const int h = blockIdx.x, b = blockIdx.y;
   const int64_t row = ((int64_t)b * H + h) * W;  // voxel index of (b, h, 0)
-  const int xu0 = x0 + shift_lo;                // first column of ls and gs
-  const int xv0 = x0 - (shift_lo + D - 1);      // first column of rs
+  const int ntiles = (W + TW - 1) / TW;
+  const int nchunks = ntiles + nwin - 1;  // chunks of each stream the row needs
 
-  const int cpr = C / EPC;  // chunks per column
-  for (int q = threadIdx.x; q < 2 * S * cpr; q += THREADS) {
-    const int col = q / cpr, c = (q - col * cpr) * EPC;
-    const bool is_l = col < S;
-    const int j = is_l ? col : col - S;
-    const int x = (is_l ? xu0 : xv0) + j;
-    const bool ok = x >= 0 && x < W;
-    const T* src = (is_l ? left : right) + (ok ? (row + x) * C + c : 0);
-    cp_async16((is_l ? ls : rs) + j * C + c, src, ok);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-  // gb, masked: plane d at column x is used only where x and x - s_d are in
-  // the image.
-  for (int q = threadIdx.x; q < D * S * G; q += THREADS) {
-    const int g = q % G, j = (q / G) % S, d = q / (G * S);
-    const int x = xu0 + j, xr = x - (shift_lo + d);
-    const bool ok = x >= 0 && x < W && xr >= 0 && xr < W;
-    gs[q] = ok ? gbar[((((int64_t)b * D + d) * H + h) * W + x) * G + g] : from_f<T>(0.f);
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-
-  for (int q = threadIdx.x; q < 2 * S * G; q += THREADS) {
-    const int col = q / G, g = q - col * G;
-    const T* p = (col < S ? ls + col * C : rs + (col - S) * C) + g * cpg;
-    float ss = 0.f;
-    for (int c = 0; c < cpg; ++c) {
-      const float v = to_f(p[c]);
-      ss = fmaf(v, v, ss);
+  // Chunk c holds l and gb at columns s_lo + c TW + k and r at c TW + k - s_hi
+  // (k < TW), in ring slot c mod nring.  Every chunk commits one group, an
+  // empty one past the row's end, so the waits count alike on every tile.
+  auto load = [&](int c) {
+    if (c < nchunks) {
+      const int k0 = (c % nring) * TW;
+      const int xl = lo + c * TW + i, xr = c * TW + i - hi;
+      const bool okl = xl >= 0 && xl < W, okr = xr >= 0 && xr < W;
+      for (int m = 0; m < GRP; ++m) {
+        const int e = g * CPG + m * EPC;
+        tc::cp_async16(tc::smem_addr(ls + (k0 + i) * C + e), left + (okl ? (row + xl) * C + e : 0),
+                       okl);
+        tc::cp_async16(tc::smem_addr(rs + (k0 + i) * C + e), right + (okr ? (row + xr) * C + e : 0),
+                       okr);
+      }
+      for (int q = threadIdx.x; q < D * RUN; q += NT) {
+        const int d = q / RUN, e = q % RUN * EPC;  // plane; element of its TW x G run
+        const int k = e / G, x = lo + c * TW + k;
+        const bool ok = x >= 0 && x < W;
+        const int64_t src = ((((int64_t)b * D + d) * H + h) * W + x) * G + e - k * G;
+        tc::cp_async16(tc::smem_addr(gs + ((k0 + k) * D + d) * G + e - k * G),
+                       gbar + (ok ? src : 0), ok);
+      }
     }
-    const int k = col < S ? q : q - S * G;
-    (col < S ? nl : nr)[k] = sqrtf(ss);
-    (col < S ? il : ir)[k] = 1.f / (sqrtf(ss) + EPS);
-  }
-  __syncthreads();
+    tc::cp_async_commit();
+  };
+  // 1 / (norm + eps) of this thread's group in chunk c, which it copied.
+  auto norms = [&](int c) {
+    const int k = (c % nring) * TW + i;
+    float v[CPG];
+    load_group(ls + k * C + g * CPG, v);
+    il[k * G + g] = inv_norm(v);
+    load_group(rs + k * C + g * CPG, v);
+    ir[k * G + g] = inv_norm(v);
+  };
 
-  // yl and yr of the tile.  Tile column i is ls/gs column i - shift_lo and
-  // rs column i + shift_lo + D - 1; plane d pairs it with rs column
-  // i + D - 1 - d (for yl) and ls/gs column i + d (for yr).
-  const float inv_cpg = 1.f / (float)cpg;
-  for (int q = threadIdx.x; q < TW * C; q += THREADS) {
-    const int i = q / C, c = q - i * C, g = c / cpg;
-    const int jt = i - shift_lo;
-    float al = 0.f, ar = 0.f;
+  for (int c = 0; c < nring - 1; ++c) load(c);
+  for (int t = 0; t < ntiles; ++t) {
+    // chunk t + nring - 1 goes where chunk t - 1 was, which no thread reads
+    // since the barrier that ended tile t - 1
+    load(t + nring - 1);
+    tc::cp_async_wait<STAGES - 1>();  // chunks up to t + nwin - 1 have landed
+    if (t == 0) {
+      for (int c = 0; c < nwin; ++c) norms(c);
+    } else {
+      norms(t + nwin - 1);
+    }
+    __syncthreads();
+
+    // Window column j (l and gb at x0 + s_lo + j, r at x0 - s_hi + j) is
+    // ring column base + j, wrapped.  This thread's column x = x0 + i is
+    // window column i - s_lo of l and gb, i + s_hi of r; plane d pairs it
+    // with r's i + D - 1 - d (yl) and l's and gb's i + d (yr).
+    const int x = t * TW + i, base = (t % nring) * TW;
+    auto ring = [&](int j) { return base + j < cols ? base + j : base + j - cols; };
+    const int jx = ring(i - lo);
+    float yl[CPG] = {}, yr[CPG] = {};
     for (int d = 0; d < D; ++d) {
-      const int jv = i + D - 1 - d, ju = i + d;
-      al = fmaf(to_f(gs[(d * S + jt) * G + g]) * to_f(rs[jv * C + c]), ir[jv * G + g], al);
-      ar = fmaf(to_f(gs[(d * S + ju) * G + g]) * to_f(ls[ju * C + c]), il[ju * G + g], ar);
+      const int jv = ring(i + D - 1 - d), ju = ring(i + d);
+      const bool valid = (unsigned)(x - lo - d) < (unsigned)W;  // x - s_d in the image
+      const float wl = valid ? to_f(gs[(jx * D + d) * G + g]) * ir[jv * G + g] : 0.f;
+      const float wr = to_f(gs[(ju * D + d) * G + g]) * il[ju * G + g];
+      float v[CPG], u[CPG];
+      load_group(rs + jv * C + g * CPG, v);
+      load_group(ls + ju * C + g * CPG, u);
+      for (int c = 0; c < CPG; ++c) {
+        yl[c] = fmaf(wl, v[c], yl[c]);
+        yr[c] = fmaf(wr, u[c], yr[c]);
+      }
     }
-    yl[q] = al * inv_cpg;
-    yr[q] = ar * inv_cpg;
+    if (x < W) {
+      float a[CPG];
+      for (int c = 0; c < CPG; ++c) {
+        yl[c] *= 1.f / CPG;
+        yr[c] *= 1.f / CPG;
+      }
+      load_group(ls + jx * C + g * CPG, a);
+      norm_vjp(a, yl);
+      store_group(gleft + (row + x) * C + g * CPG, yl);
+      load_group(rs + ring(i + hi) * C + g * CPG, a);
+      norm_vjp(a, yr);
+      store_group(gright + (row + x) * C + g * CPG, yr);
+    }
+    __syncthreads();
   }
-  __syncthreads();
-
-  // Norm VJP coefficient per (tile column, group): (x.y) / (max(n,1e-30) (n+eps)^2).
-  for (int q = threadIdx.x; q < 2 * TW * G; q += THREADS) {
-    const bool is_l = q < TW * G;
-    const int k = is_l ? q : q - TW * G;
-    const int i = k / G, g = k - i * G;
-    const int j = is_l ? i - shift_lo : i + shift_lo + D - 1;
-    const T* xs = (is_l ? ls : rs) + j * C + g * cpg;
-    const float* ys = (is_l ? yl : yr) + i * C + g * cpg;
-    float dot = 0.f;
-    for (int c = 0; c < cpg; ++c) dot = fmaf(to_f(xs[c]), ys[c], dot);
-    const float n = (is_l ? nl : nr)[j * G + g], inv = (is_l ? il : ir)[j * G + g];
-    (is_l ? kl : kr)[k] = dot * inv * inv / fmaxf(n, 1e-30f);
-  }
-  __syncthreads();
-
-  for (int q = threadIdx.x; q < 2 * TW * C; q += THREADS) {
-    const bool is_l = q < TW * C;
-    const int k = is_l ? q : q - TW * C;
-    const int i = k / C, c = k - i * C, g = c / cpg;
-    const int x = x0 + i;
-    if (x >= W) continue;
-    const int j = is_l ? i - shift_lo : i + shift_lo + D - 1;
-    const float inv = (is_l ? il : ir)[j * G + g];
-    const float xv = to_f((is_l ? ls : rs)[j * C + c]);
-    const float v = (is_l ? yl : yr)[k] * inv - xv * (is_l ? kl : kr)[i * G + g];
-    (is_l ? gleft : gright)[(row + x) * C + c] = from_f<T>(v);
-  }
+  tc::cp_async_wait<0>();
 }
 
-template <typename T>
+template <typename T, int G>
 int launch(const void* l, const void* r, const void* gb, void* gl, void* gr, int B, int H, int W,
-           int C, int G, int shift_lo, int D, cudaStream_t stream) {
-  constexpr int EPC = 16 / sizeof(T);
-  if (C % EPC != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<T>(C, G, D);
-  cudaError_t e = cudaFuncSetAttribute(gwc_volume_bwd_kernel<T>,
+           int shift_lo, int D, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(G, D);
+  cudaError_t e = cudaFuncSetAttribute(gwc_volume_bwd_kernel<T, G>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((W + TW - 1) / TW, H, B);
-  gwc_volume_bwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+  gwc_volume_bwd_kernel<T, G><<<dim3(H, B), TW * G, smem, stream>>>(
       static_cast<const T*>(l), static_cast<const T*>(r), static_cast<const T*>(gb),
-      static_cast<T*>(gl), static_cast<T*>(gr), H, W, C, G, shift_lo, D);
+      static_cast<T*>(gl), static_cast<T*>(gr), H, W, shift_lo, D);
   return (int)cudaGetLastError();
 }
+
+template <typename T, int G>
+int blocks_per_sm(int D) {
+  const size_t smem = smem_bytes<T>(G, D);
+  cudaError_t e = cudaFuncSetAttribute(gwc_volume_bwd_kernel<T, G>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gwc_volume_bwd_kernel<T, G>, TW * G, smem);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// The instantiations: G = 32 (the model's C = 256) and G = 8 (small shapes).
+bool supported(int C, int G) { return C == CPG * G && (G == 32 || G == 8); }
 
 }  // namespace
 
 // Bytes of shared memory a launch needs (the wrapper checks it against the
 // card's limit); dtype as below.
 extern "C" long long gwc_volume_bwd_smem(int C, int G, int D, int dtype) {
-  return dtype == 0 ? (long long)smem_bytes<float>(C, G, D)
-                    : (long long)smem_bytes<__nv_bfloat16>(C, G, D);
+  (void)C;
+  return dtype == 0 ? (long long)smem_bytes<float>(G, D)
+                    : (long long)smem_bytes<__nv_bfloat16>(G, D);
+}
+
+// Blocks of a launch that fit on one SM at once (cudaOccupancy...), or
+// minus a cudaError_t.
+extern "C" int gwc_volume_bwd_blocks_per_sm(int C, int G, int D, int dtype) {
+  if (!supported(C, G) || D <= 0 || (dtype != 0 && dtype != 1)) return -(int)cudaErrorInvalidValue;
+  if (dtype == 0) return G == 32 ? blocks_per_sm<float, 32>(D) : blocks_per_sm<float, 8>(D);
+  return G == 32 ? blocks_per_sm<__nv_bfloat16, 32>(D) : blocks_per_sm<__nv_bfloat16, 8>(D);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (left, right, gbar, gleft, gright alike).
-// Returns a cudaError_t (0 = launched).
+// Takes C = 8 G with G = 32 or 8.  Returns a cudaError_t (0 = launched).
 extern "C" int gwc_volume_bwd(const void* left, const void* right, const void* gbar, void* gleft,
                               void* gright, int B, int H, int W, int C, int G, int shift_lo, int D,
                               int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || G <= 0 || C % G != 0 || D <= 0 || H > 65535 || B > 65535 ||
-      shift_lo > 0 || shift_lo + D - 1 < 0)
+  if (B <= 0 || H <= 0 || W <= 0 || D <= 0 || !supported(C, G) || B > 65535 || shift_lo > 0 ||
+      shift_lo + D - 1 < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(left, right, gbar, gleft, gright, B, H, W, C, G, shift_lo, D, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(left, right, gbar, gleft, gright, B, H, W, C, G, shift_lo, D, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return G == 32 ? launch<float, 32>(left, right, gbar, gleft, gright, B, H, W, shift_lo, D, st)
+                   : launch<float, 8>(left, right, gbar, gleft, gright, B, H, W, shift_lo, D, st);
+  return G == 32
+             ? launch<__nv_bfloat16, 32>(left, right, gbar, gleft, gright, B, H, W, shift_lo, D, st)
+             : launch<__nv_bfloat16, 8>(left, right, gbar, gleft, gright, B, H, W, shift_lo, D, st);
 }

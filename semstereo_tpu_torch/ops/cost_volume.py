@@ -105,14 +105,38 @@ def _lib():
     return lib
 
 
-def _lib_bwd():
-    lib = _build.load("gwc_volume_bwd")
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C entry points of ``csrc/gwc_volume_bwd.cu`` on ``lib``
+    (the card's build, or the CPU emulator's in the tests)."""
     if lib.gwc_volume_bwd.argtypes is None:
         lib.gwc_volume_bwd.argtypes = [_P, _P, _P, _P, _P] + [_I] * 8 + [_P]
         lib.gwc_volume_bwd.restype = ctypes.c_int
         lib.gwc_volume_bwd_smem.argtypes = [_I] * 4
         lib.gwc_volume_bwd_smem.restype = ctypes.c_longlong
+        lib.gwc_volume_bwd_blocks_per_sm.argtypes = [_I] * 4
+        lib.gwc_volume_bwd_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+def _lib_bwd():
+    return bind_bwd(_build.load("gwc_volume_bwd"))
+
+
+# K4's instantiations: 8 channels per group, G = 32 (the model's) or 8.
+_BWD_GROUPS = (8, 32)
+
+
+def gwc_volume_bwd_occupancy(channels: int, num_groups: int, planes: int,
+                             dtype: torch.dtype) -> tuple[int, int]:
+    """(blocks per SM, dynamic shared memory bytes per block) of K4 on the
+    current card, for features of ``channels`` in ``num_groups`` groups and
+    a volume of ``planes`` planes."""
+    lib = _lib_bwd()
+    args = (channels, num_groups, planes, _DTYPES[dtype])
+    n = lib.gwc_volume_bwd_blocks_per_sm(*args)
+    if n < 0:
+        raise RuntimeError(f"gwc_volume_bwd_occupancy{args}: CUDA error {-n}")
+    return n, lib.gwc_volume_bwd_smem(*args)
 
 
 def _check(left, right, num_groups):
@@ -169,6 +193,9 @@ def gwc_volume_norm_bwd(left, right, gbar, max_shift: int, num_groups: int,
     if left.device.type == "cpu":
         return gwc_volume_norm_bwd_plain(left, right, gbar, max_shift, num_groups, symmetric)
     _check_cuda("gwc_volume_norm_bwd", left, right, gbar)
+    if num_groups not in _BWD_GROUPS or c != 8 * num_groups:
+        raise ValueError(f"gwc_volume_norm_bwd: kernel takes 8 channels per group and G in "
+                         f"{_BWD_GROUPS}, got C={c}, G={num_groups}")
     lib = _lib_bwd()
     smem = lib.gwc_volume_bwd_smem(c, num_groups, d, _DTYPES[left.dtype])
     limit = torch.cuda.get_device_properties(left.device).shared_memory_per_block_optin

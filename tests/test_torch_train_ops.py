@@ -347,17 +347,41 @@ def test_conv3d_weight_grad_kernel_matches_plain(cuda, dtype, xshape, f, stride)
     assert _max_rel(got, want) <= CARD_TOL[dtype]
 
 
+# K4's edges at the model's C = 256, G = 32: (B, H, W, max_shift, symmetric,
+# zero group).  The US3D range (16 planes) and its positive twin, widths
+# that no 8-column tile divides (40, 130, 17), B = H = 1, the WHU positive
+# range at 16 planes, and an all-zero channel group (the 1e-30 clamp).
+GWC_BWD_CASES = [
+    (2, 8, 40, 8, True, False), (2, 8, 40, 8, False, False), (2, 3, 130, 8, True, False),
+    (1, 1, 40, 8, True, False), (1, 1, 17, 8, False, False), (2, 4, 72, 16, False, False),
+    (1, 2, 40, 8, True, True),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("symmetric", [True, False])
-def test_gwc_kernel_backward_matches_plain(cuda, dtype, symmetric):
+@pytest.mark.parametrize("b,h,w,max_shift,symmetric,zero_group", GWC_BWD_CASES)
+def test_gwc_kernel_backward_matches_plain(cuda, dtype, b, h, w, max_shift, symmetric,
+                                           zero_group):
     rng = np.random.default_rng(56)
-    left, right = (torch.from_numpy(_rand(rng, (2, 8, 40, 256))).to(cuda, dtype)
-                   for _ in range(2))
-    d = 16 if symmetric else 8
-    gbar = torch.from_numpy(_rand(rng, (2, d, 8, 40, 32))).to(cuda, dtype)
-    got = cost_volume.gwc_volume_norm_bwd(left, right, gbar, 8, 32, symmetric)
+    left, right = (torch.from_numpy(_rand(rng, (b, h, w, 256))) for _ in range(2))
+    lo, d = cost_volume.shift_range(max_shift, symmetric)
+    gbar = torch.from_numpy(_rand(rng, (b, d, h, w, 32)))
+    for k, s in enumerate(range(lo, lo + d)):  # NaN where x - s leaves the image: unused
+        gbar[:, k, :, :max(s, 0)] = float("nan")
+        gbar[:, k, :, w + min(s, 0):] = float("nan")
+    if zero_group:
+        left[0, 0, 3, 8:16] = 0
+        right[0, -1, 5, :8] = 0
+    left, right, gbar = (t.to(cuda, dtype) for t in (left, right, gbar))
+    before = cost_volume.gwc_volume_norm_bwd.launches
+    got = cost_volume.gwc_volume_norm_bwd(left, right, gbar, max_shift, 32, symmetric)
     torch.cuda.synchronize()
-    want = cost_volume.gwc_volume_norm_bwd_plain(left, right, gbar, 8, 32, symmetric)
+    assert cost_volume.gwc_volume_norm_bwd.launches == before + 1
+    want = cost_volume.gwc_volume_norm_bwd_plain(left, right, gbar, max_shift, 32, symmetric)
     for g, w_ in zip(got, want):
         assert g.dtype == dtype
-        assert _max_rel(g, w_) <= CARD_TOL[dtype]
+        # relative to the largest |want| of each (b, h, x, group): a zero
+        # group's cotangent is 1/eps times the others'
+        g, w_ = (t.float().reshape(b, h, w, 32, 8) for t in (g, w_))
+        scale = w_.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        assert ((g - w_).abs() / scale).max().item() <= CARD_TOL[dtype]
