@@ -6,7 +6,8 @@
    and prints the card's name and power limit with the build time.
 2. Kernels: each kernel of the main path at the shapes the main path gives
    it (K1 ``conv3d_bn_act`` at its 13 shapes, K2 ``gwc_volume`` symmetric
-   and positive), bf16 and fp32, against its plain PyTorch version on the
+   and positive at B = 1 and, as the train step gives it, B = 2), bf16 and
+   fp32, against its plain PyTorch version on the
    card (TF32 off): max abs/rel error, kernel and plain device times (median
    of CUDA-event timings, L2 scrubbed before each), the least time the card
    could take (bound), and for K1 the time of ``F.conv3d`` + affine + ReLU
@@ -27,10 +28,11 @@
    by K1, stride-2 dx by ``F.conv_transpose3d``, dw by the kernel of
    ``csrc/conv3d_wgrad.cu``), at the 13 volume-conv shapes at the train
    batch, and K4 ``gwc_volume_bwd`` at the main-path shape, symmetric and
-   positive, bf16 and fp32, against their plain versions (K3's dw also
-   alone against ``conv3d_weight_grad_plain``; K4 also against autograd of
-   the plain forward, with its resident blocks per SM and shared memory
-   per block): errors, device times of each part, bound, and as
+   positive, bf16 and fp32, and at plane counts that take a launch per
+   slab of planes (D = 20 fp32, D = 36 bf16), against their plain versions
+   (K3's dw also alone against ``conv3d_weight_grad_plain``; K4 also against
+   autograd of the plain forward, with its resident blocks per SM and shared
+   memory per block): errors, device times of each part, bound, and as
    yardsticks the port never calls, cuDNN's whole backward (autograd of
    ``F.conv3d``), its dgrad alone and its wgrad alone
    (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``).
@@ -111,6 +113,10 @@ TRAIN_LAUNCHES = {"K1-s1": 18, "K1-s2": 4, "K2": 1, "K3": 9, "K3-dw": 13, "K4": 
 EVAL_LAUNCHES = {"K1-s1": 9, "K1-s2": 4, "K2": 1, "K3": 0, "K3-dw": 0, "K4": 0}
 # K4 at the main path's shape at the train batch: features [2, 128, 128, 256].
 K4_SHAPE = ((TRAIN_BATCH, 128, 128, 256), 32, 8)
+# K4 at symmetric plane counts above one launch's slab, the smallest that
+# one launch could not hold before (D = 20 fp32, D = 36 bf16): (dtype,
+# max_shift).
+K4_LARGE_D = [(torch.float32, 10), (torch.bfloat16, 18)]
 # The fp32 card step against the CPU step at 256x256 with every plane kept
 # by the top-k stages (topk = refine_topk = 32, the /4 plane count), so no
 # hard choice sits on the gradient's path: loss terms (relative), running
@@ -227,34 +233,43 @@ def check_k1(ops, gen, scrub):
 
 
 def check_k2(ops, gen, scrub):
+    """K2 at the eval path's shape (B = 1) and the train step's (B = 2), with
+    its resident blocks per SM and dynamic shared memory per block."""
+    from semstereo_tpu_torch.ops.cost_volume import gwc_volume_occupancy
+
     rows = []
-    (b, h, w, c), g, s = K2_SHAPE
-    for dtype in (torch.bfloat16, torch.float32):
-        size = torch.finfo(dtype).bits // 8
-        for symmetric in (True, False):
-            left = torch.randn((b, h, w, c), device="cuda", generator=gen).to(dtype)
-            right = torch.randn((b, h, w, c), device="cuda", generator=gen).to(dtype)
-            y = ops.gwc_volume_norm(left, right, s, g, symmetric)
-            torch.cuda.synchronize()
-            ref = ops.gwc_volume_norm_plain(left, right, s, g, symmetric)
-            err, rel = compare(y, ref)
-            if not rel <= REL_TOL[dtype]:
-                raise AssertionError(f"K2 symmetric={symmetric} {dtype}: rel err {rel:.3e}")
-            d = y.shape[1]
-            flops = 2.0 * d * h * w * c * b + 2.0 * 2 * b * h * w * c  # dots + norms
-            nbytes = (2 * left.numel() + y.numel()) * size
-            b_ms, b_by = bound_ms(nbytes, flops, dtype)
-            row = dict(
-                kernel="K2", name="gwc_volume " + ("symmetric" if symmetric else "positive"),
-                dtype=str(dtype)[6:], shape=[b, h, w, c], G=g, D=d, max_abs_err=err,
-                max_rel_err=rel,
-                ms=timed_ms(lambda: ops.gwc_volume_norm(left, right, s, g, symmetric), 20, scrub),
-                plain_ms=timed_ms(
-                    lambda: ops.gwc_volume_norm_plain(left, right, s, g, symmetric), 5, scrub),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by,
-            )
-            log("kernel", json.dumps(row))
-            rows.append(row)
+    (_, h, w, c), g, s = K2_SHAPE
+    for b in (1, TRAIN_BATCH):
+        for dtype in (torch.bfloat16, torch.float32):
+            size = torch.finfo(dtype).bits // 8
+            for symmetric in (True, False):
+                left = torch.randn((b, h, w, c), device="cuda", generator=gen).to(dtype)
+                right = torch.randn((b, h, w, c), device="cuda", generator=gen).to(dtype)
+                y = ops.gwc_volume_norm(left, right, s, g, symmetric)
+                torch.cuda.synchronize()
+                ref = ops.gwc_volume_norm_plain(left, right, s, g, symmetric)
+                err, rel = compare(y, ref)
+                if not rel <= REL_TOL[dtype]:
+                    raise AssertionError(f"K2 B={b} symmetric={symmetric} {dtype}: rel err "
+                                         f"{rel:.3e}")
+                d = y.shape[1]
+                flops = 2.0 * d * h * w * c * b + 2.0 * 2 * b * h * w * c  # dots + norms
+                nbytes = (2 * left.numel() + y.numel()) * size
+                b_ms, b_by = bound_ms(nbytes, flops, dtype)
+                blocks, smem = gwc_volume_occupancy(c, g, d, dtype)
+                row = dict(
+                    kernel="K2", name="gwc_volume " + ("symmetric" if symmetric else "positive"),
+                    role="forward" if b == 1 else "train_batch",
+                    dtype=str(dtype)[6:], shape=[b, h, w, c], G=g, D=d, blocks_per_sm=blocks,
+                    smem_bytes=smem, max_abs_err=err, max_rel_err=rel,
+                    ms=timed_ms(lambda: ops.gwc_volume_norm(left, right, s, g, symmetric), 20,
+                                scrub),
+                    plain_ms=timed_ms(
+                        lambda: ops.gwc_volume_norm_plain(left, right, s, g, symmetric), 5, scrub),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                )
+                log("kernel", json.dumps(row))
+                rows.append(row)
     return rows
 
 
@@ -482,46 +497,53 @@ def check_k4(ops, gen, scrub):
     """K4 at the main path's shape: against the plain closed form and
     against autograd of the plain forward; with its resident blocks per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and dynamic shared
-    memory per block."""
+    memory per block.  Then at ``K4_LARGE_D``, plane counts that take more
+    than one launch (``role: "large_d"``)."""
     from semstereo_tpu_torch.ops.cost_volume import gwc_volume_bwd_occupancy
 
     rows = []
     (b, h, w, c), g, s = K4_SHAPE
-    for dtype in (torch.bfloat16, torch.float32):
+    runs = [(dtype, s, symmetric, "forward") for dtype in (torch.bfloat16, torch.float32)
+            for symmetric in (True, False)]
+    runs += [(dtype, shift, True, "large_d") for dtype, shift in K4_LARGE_D]
+    for dtype, s, symmetric, role in runs:
         size = torch.finfo(dtype).bits // 8
-        for symmetric in (True, False):
-            d = 2 * s if symmetric else s
-            left = torch.randn((b, h, w, c), device="cuda", generator=gen).to(dtype)
-            right = torch.randn((b, h, w, c), device="cuda", generator=gen).to(dtype)
-            gbar = torch.randn((b, d, h, w, g), device="cuda", generator=gen).to(dtype)
-            got = ops.gwc_volume_norm_bwd(left, right, gbar, s, g, symmetric)
-            torch.cuda.synchronize()
-            plain = ops.gwc_volume_norm_bwd_plain(left, right, gbar, s, g, symmetric)
-            lt, rt = left.clone().requires_grad_(), right.clone().requires_grad_()
-            auto = torch.autograd.grad(ops.gwc_volume_norm_plain(lt, rt, s, g, symmetric),
-                                       (lt, rt), gbar)
-            errs = [compare(a, p_) for a, p_ in zip(got, plain)]
-            errs_auto = [compare(a, p_) for a, p_ in zip(got, auto)]
-            if not all(rel <= REL_TOL[dtype] for _, rel in errs + errs_auto):
-                raise AssertionError(f"K4 symmetric={symmetric} {dtype}: {errs} {errs_auto}")
-            flops = 2 * 2.0 * d * b * h * w * c + 8.0 * 2 * b * h * w * c  # yl, yr; norm VJPs
-            nbytes = (4 * left.numel() + gbar.numel()) * size
-            b_ms, b_by = bound_ms(nbytes, flops, dtype)
-            blocks, smem = gwc_volume_bwd_occupancy(c, g, d, dtype)
-            row = dict(
-                kernel="K4", name="gwc_volume_bwd " + ("symmetric" if symmetric else "positive"),
-                dtype=str(dtype)[6:], shape=[b, h, w, c], G=g, D=d, blocks_per_sm=blocks,
-                smem_bytes=smem,
-                max_abs_err=max(e for e, _ in errs), max_rel_err=max(r for _, r in errs),
-                max_rel_err_autograd=max(r for _, r in errs_auto),
-                ms=timed_ms(lambda: ops.gwc_volume_norm_bwd(left, right, gbar, s, g, symmetric),
-                            20, scrub),
-                plain_ms=timed_ms(lambda: ops.gwc_volume_norm_bwd_plain(
-                    left, right, gbar, s, g, symmetric), 5, scrub),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by,
-            )
-            log("kernel", json.dumps(row))
-            rows.append(row)
+        d = 2 * s if symmetric else s
+        left = torch.randn((b, h, w, c), device="cuda", generator=gen).to(dtype)
+        right = torch.randn((b, h, w, c), device="cuda", generator=gen).to(dtype)
+        gbar = torch.randn((b, d, h, w, g), device="cuda", generator=gen).to(dtype)
+        before = ops.gwc_volume_norm_bwd.launches
+        got = ops.gwc_volume_norm_bwd(left, right, gbar, s, g, symmetric)
+        torch.cuda.synchronize()
+        launches = ops.gwc_volume_norm_bwd.launches - before
+        plain = ops.gwc_volume_norm_bwd_plain(left, right, gbar, s, g, symmetric)
+        lt, rt = left.clone().requires_grad_(), right.clone().requires_grad_()
+        auto = torch.autograd.grad(ops.gwc_volume_norm_plain(lt, rt, s, g, symmetric),
+                                   (lt, rt), gbar)
+        errs = [compare(a, p_) for a, p_ in zip(got, plain)]
+        errs_auto = [compare(a, p_) for a, p_ in zip(got, auto)]
+        if not all(rel <= REL_TOL[dtype] for _, rel in errs + errs_auto):
+            raise AssertionError(f"K4 D={d} symmetric={symmetric} {dtype}: {errs} {errs_auto}")
+        flops = 2 * 2.0 * d * b * h * w * c + 8.0 * 2 * b * h * w * c  # yl, yr; norm VJPs
+        nbytes = (4 * left.numel() + gbar.numel()) * size
+        b_ms, b_by = bound_ms(nbytes, flops, dtype)
+        blocks, smem = gwc_volume_bwd_occupancy(c, g, d, dtype)
+        row = dict(
+            kernel="K4", name="gwc_volume_bwd " + ("symmetric" if symmetric else "positive"),
+            role=role, dtype=str(dtype)[6:], shape=[b, h, w, c], G=g, D=d,
+            launches_per_call=launches,
+            blocks_per_sm=blocks, smem_bytes=smem,
+            max_abs_err=max(e for e, _ in errs), max_rel_err=max(r for _, r in errs),
+            max_rel_err_autograd=max(r for _, r in errs_auto),
+            ms=timed_ms(lambda: ops.gwc_volume_norm_bwd(left, right, gbar, s, g, symmetric),
+                        20, scrub),
+            plain_ms=timed_ms(lambda: ops.gwc_volume_norm_bwd_plain(
+                left, right, gbar, s, g, symmetric), 5, scrub),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        )
+        log("kernel", json.dumps(row))
+        rows.append(row)
+        del left, right, gbar, got, plain, lt, rt, auto
     return rows
 
 
@@ -702,8 +724,13 @@ def main() -> int:
             entry["launches_dw"] = train["launches"]["K3-dw"]
             entry.update({k: sum(r[k] for r in mine) for k in (
                 "dx_k1_ms", "s2_dx_ms", "dw_ms", "dx_library_ms", "dw_library_ms")})
-        if name == "K4":
+        if name in ("K2", "K4"):
             entry.update(blocks_per_sm=mine[0]["blocks_per_sm"], smem_bytes=mine[0]["smem_bytes"])
+        if name == "K2":
+            # the train step's launch, at B = 2
+            entry["ms_train_batch"] = sum(
+                r["ms"] for r in rows if r["kernel"] == "K2" and r["dtype"] == "bfloat16"
+                and r.get("role") == "train_batch" and r["name"].endswith("symmetric"))
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

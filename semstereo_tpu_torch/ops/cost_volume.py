@@ -96,23 +96,33 @@ def gwc_volume_norm_bwd_plain(left, right, gbar, max_shift: int, num_groups: int
     return (norm_vjp(x_l, n_l, y_l).to(left.dtype), norm_vjp(x_r, n_r, y_r).to(right.dtype))
 
 
-def _lib():
-    lib = _build.load("gwc_volume")
-    fn = lib.gwc_volume
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-        fn.restype = ctypes.c_int
+def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C entry points of ``csrc/gwc_volume.cu`` on ``lib`` (the
+    card's build, or the CPU emulator's in the tests)."""
+    if lib.gwc_volume.argtypes is None:
+        lib.gwc_volume.argtypes = [_P, _P, _P] + [_I] * 8 + [_P]
+        lib.gwc_volume.restype = ctypes.c_int
+        lib.gwc_volume_smem.argtypes = [_I] * 4
+        lib.gwc_volume_smem.restype = ctypes.c_longlong
+        lib.gwc_volume_blocks_per_sm.argtypes = [_I] * 4
+        lib.gwc_volume_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+def _lib():
+    return bind_fwd(_build.load("gwc_volume"))
 
 
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C entry points of ``csrc/gwc_volume_bwd.cu`` on ``lib``
     (the card's build, or the CPU emulator's in the tests)."""
     if lib.gwc_volume_bwd.argtypes is None:
-        lib.gwc_volume_bwd.argtypes = [_P, _P, _P, _P, _P] + [_I] * 8 + [_P]
+        lib.gwc_volume_bwd.argtypes = [_P] * 7 + [_I] * 8 + [_P]
         lib.gwc_volume_bwd.restype = ctypes.c_int
         lib.gwc_volume_bwd_smem.argtypes = [_I] * 4
         lib.gwc_volume_bwd_smem.restype = ctypes.c_longlong
+        lib.gwc_volume_bwd_slabs.argtypes = [_I]
+        lib.gwc_volume_bwd_slabs.restype = ctypes.c_int
         lib.gwc_volume_bwd_blocks_per_sm.argtypes = [_I] * 4
         lib.gwc_volume_bwd_blocks_per_sm.restype = ctypes.c_int
     return lib
@@ -122,21 +132,33 @@ def _lib_bwd():
     return bind_bwd(_build.load("gwc_volume_bwd"))
 
 
-# K4's instantiations: 8 channels per group, G = 32 (the model's) or 8.
-_BWD_GROUPS = (8, 32)
+# K2's and K4's instantiations: 8 channels per group, G = 32 (the model's) or 8.
+_GROUPS = (8, 32)
+
+
+def _occupancy(what, blocks_per_sm, smem, args):
+    n = blocks_per_sm(*args)
+    if n < 0:
+        raise RuntimeError(f"{what}{args}: CUDA error {-n}")
+    return n, smem(*args)
+
+
+def gwc_volume_occupancy(channels: int, num_groups: int, planes: int,
+                         dtype: torch.dtype) -> tuple[int, int]:
+    """(blocks per SM, dynamic shared memory bytes per block) of K2 on the
+    current card, for features of ``channels`` in ``num_groups`` groups and
+    a volume of ``planes`` planes."""
+    lib = _lib()
+    return _occupancy("gwc_volume_occupancy", lib.gwc_volume_blocks_per_sm, lib.gwc_volume_smem,
+                      (channels, num_groups, planes, _DTYPES[dtype]))
 
 
 def gwc_volume_bwd_occupancy(channels: int, num_groups: int, planes: int,
                              dtype: torch.dtype) -> tuple[int, int]:
-    """(blocks per SM, dynamic shared memory bytes per block) of K4 on the
-    current card, for features of ``channels`` in ``num_groups`` groups and
-    a volume of ``planes`` planes."""
+    """The same for K4's first launch (one per slab of planes)."""
     lib = _lib_bwd()
-    args = (channels, num_groups, planes, _DTYPES[dtype])
-    n = lib.gwc_volume_bwd_blocks_per_sm(*args)
-    if n < 0:
-        raise RuntimeError(f"gwc_volume_bwd_occupancy{args}: CUDA error {-n}")
-    return n, lib.gwc_volume_bwd_smem(*args)
+    return _occupancy("gwc_volume_bwd_occupancy", lib.gwc_volume_bwd_blocks_per_sm,
+                      lib.gwc_volume_bwd_smem, (channels, num_groups, planes, _DTYPES[dtype]))
 
 
 def _check(left, right, num_groups):
@@ -147,7 +169,7 @@ def _check(left, right, num_groups):
         raise ValueError(f"{left.shape[3]} channels do not split into {num_groups} groups")
 
 
-def _check_cuda(what, *ts):
+def _check_cuda(what, num_groups, *ts):
     left = ts[0]
     if left.device.type != "cuda" or any(t.device != left.device for t in ts):
         raise ValueError(f"{what}: no kernel for {[str(t.device) for t in ts]}")
@@ -156,8 +178,9 @@ def _check_cuda(what, *ts):
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{what}: inputs must be contiguous")
     c = left.shape[3]
-    if c * left.element_size() % 16:
-        raise ValueError(f"{what}: kernel takes C filling 16-byte chunks, got C={c}")
+    if num_groups not in _GROUPS or c != 8 * num_groups:
+        raise ValueError(f"{what}: kernel takes 8 channels per group and G in {_GROUPS}, got "
+                         f"C={c}, G={num_groups}")
 
 
 def gwc_volume_norm_fwd(left, right, max_shift: int, num_groups: int,
@@ -166,7 +189,7 @@ def gwc_volume_norm_fwd(left, right, max_shift: int, num_groups: int,
     _check(left, right, num_groups)
     if left.device.type == "cpu":
         return gwc_volume_norm_plain(left, right, max_shift, num_groups, symmetric)
-    _check_cuda("gwc_volume_norm", left, right)
+    _check_cuda("gwc_volume_norm", num_groups, left, right)
     b, h, w, c = left.shape
     lo, d = shift_range(max_shift, symmetric)
     out = torch.empty((b, d, h, w, num_groups), dtype=left.dtype, device=left.device)
@@ -182,8 +205,8 @@ def gwc_volume_norm_fwd(left, right, max_shift: int, num_groups: int,
 def gwc_volume_norm_bwd(left, right, gbar, max_shift: int, num_groups: int,
                         symmetric: bool = True):
     """(d left, d right) of ``gwc_volume_norm`` for the volume's cotangent
-    ``gbar`` [B,D,H,W,G]: K4 on CUDA tensors, the plain closed form on CPU
-    ones."""
+    ``gbar`` [B,D,H,W,G]: K4 on CUDA tensors (one launch per slab of at most
+    17 planes), the plain closed form on CPU ones."""
     _check(left, right, num_groups)
     lo, d = shift_range(max_shift, symmetric)
     b, h, w, c = left.shape
@@ -192,10 +215,7 @@ def gwc_volume_norm_bwd(left, right, gbar, max_shift: int, num_groups: int,
                          f"{(b, d, h, w, num_groups)}")
     if left.device.type == "cpu":
         return gwc_volume_norm_bwd_plain(left, right, gbar, max_shift, num_groups, symmetric)
-    _check_cuda("gwc_volume_norm_bwd", left, right, gbar)
-    if num_groups not in _BWD_GROUPS or c != 8 * num_groups:
-        raise ValueError(f"gwc_volume_norm_bwd: kernel takes 8 channels per group and G in "
-                         f"{_BWD_GROUPS}, got C={c}, G={num_groups}")
+    _check_cuda("gwc_volume_norm_bwd", num_groups, left, right, gbar)
     lib = _lib_bwd()
     smem = lib.gwc_volume_bwd_smem(c, num_groups, d, _DTYPES[left.dtype])
     limit = torch.cuda.get_device_properties(left.device).shared_memory_per_block_optin
@@ -203,13 +223,19 @@ def gwc_volume_norm_bwd(left, right, gbar, max_shift: int, num_groups: int,
         raise ValueError(f"gwc_volume_norm_bwd: C={c}, G={num_groups}, D={d} needs {smem} "
                          f"bytes of shared memory, the card has {limit}")
     gl, gr = torch.empty_like(left), torch.empty_like(right)
+    # D above one slab of planes takes a launch per slab; in bf16 they sum
+    # in fp32 workspaces
+    slabs = lib.gwc_volume_bwd_slabs(d)
+    ws = (torch.empty((2, *left.shape), dtype=torch.float32, device=left.device)
+          if slabs > 1 and left.dtype != torch.float32 else None)
     err = lib.gwc_volume_bwd(
         left.data_ptr(), right.data_ptr(), gbar.data_ptr(), gl.data_ptr(), gr.data_ptr(),
+        None if ws is None else ws[0].data_ptr(), None if ws is None else ws[1].data_ptr(),
         b, h, w, c, num_groups, lo, d, _DTYPES[left.dtype],
         torch.cuda.current_stream(left.device).cuda_stream,
     )
     _build.check(err, "gwc_volume_norm_bwd")
-    gwc_volume_norm_bwd.launches += 1
+    gwc_volume_norm_bwd.launches += slabs
     return gl, gr
 
 

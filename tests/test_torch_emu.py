@@ -66,7 +66,7 @@ def test_k4_source_matches_plain_on_cpu(k4, dtype, b, h, w, c, g, max_shift, sym
     left, right, gbar = (t.to(dtype) for t in (left, right, gbar))
     gl, gr = torch.empty_like(left), torch.empty_like(right)
     err = k4.gwc_volume_bwd(left.data_ptr(), right.data_ptr(), gbar.data_ptr(), gl.data_ptr(),
-                            gr.data_ptr(), b, h, w, c, g, lo, d, _DTYPES[dtype], None)
+                            gr.data_ptr(), None, None, b, h, w, c, g, lo, d, _DTYPES[dtype], None)
     assert err == 0
     want = cost_volume.gwc_volume_norm_bwd_plain(left, right, gbar, max_shift, g, symmetric)
     for got, ref in zip((gl, gr), want):

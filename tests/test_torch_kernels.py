@@ -248,14 +248,29 @@ def test_conv_kernel_rejects_bf16_with_ragged_channels(cuda):
         conv3d.conv3d_bn_act(x, w, ones, ones)
 
 
+# K2's edges at the model's C = 256, G = 32: (B, H, W, symmetric, zero
+# group).  Both ranges, widths that no 16-column tile or 64-column segment
+# divides (40, 17, 130), B = 1 and 2, and an all-zero channel group.
+GWC_CASES = [
+    (2, 8, 40, True, False), (2, 8, 40, False, False), (1, 3, 17, True, False),
+    (2, 2, 130, False, False), (1, 4, 130, True, False), (1, 2, 40, True, True),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("symmetric", [True, False])
-def test_gwc_kernel_matches_plain(cuda, dtype, symmetric):
+@pytest.mark.parametrize("b,h,w,symmetric,zero_group", GWC_CASES)
+def test_gwc_kernel_matches_plain(cuda, dtype, b, h, w, symmetric, zero_group):
     rng = np.random.default_rng(41)
-    left, right = (torch.from_numpy(rng.standard_normal((2, 8, 40, 256)).astype(np.float32))
-                   .to(cuda, dtype) for _ in range(2))
+    left, right = (torch.from_numpy(rng.standard_normal((b, h, w, 256)).astype(np.float32))
+                   for _ in range(2))
+    if zero_group:
+        left[0, 0, 3, 8:16] = 0
+        right[0, -1, 5, :8] = 0
+    left, right = (t.to(cuda, dtype) for t in (left, right))
+    before = cost_volume.gwc_volume_norm.launches
     got = cost_volume.gwc_volume_norm(left, right, 8, 32, symmetric).float()
     torch.cuda.synchronize()
+    assert cost_volume.gwc_volume_norm.launches == before + 1
     want = cost_volume.gwc_volume_norm_plain(left.float(), right.float(), 8, 32, symmetric)
     err = (got - want).abs().max() / want.abs().max()
     assert err.item() <= CARD_TOL[dtype]

@@ -356,12 +356,17 @@ GWC_BWD_CASES = [
     (1, 1, 40, 8, True, False), (1, 1, 17, 8, False, False), (2, 4, 72, 16, False, False),
     (1, 2, 40, 8, True, True),
 ]
+# Plane counts above one launch's slab, the smallest that one launch could
+# not hold before: D = 20 in fp32 and D = 36 in bf16 (symmetric).
+GWC_BWD_LARGE_D = [(2, 3, 40, 10, True, False, torch.float32),
+                   (1, 2, 130, 18, True, True, torch.bfloat16)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,w,max_shift,symmetric,zero_group", GWC_BWD_CASES)
-def test_gwc_kernel_backward_matches_plain(cuda, dtype, b, h, w, max_shift, symmetric,
-                                           zero_group):
+@pytest.mark.parametrize("b,h,w,max_shift,symmetric,zero_group,dtype", [
+    case + (dtype,) for case in GWC_BWD_CASES for dtype in (torch.float32, torch.bfloat16)
+] + GWC_BWD_LARGE_D)
+def test_gwc_kernel_backward_matches_plain(cuda, b, h, w, max_shift, symmetric, zero_group,
+                                           dtype):
     rng = np.random.default_rng(56)
     left, right = (torch.from_numpy(_rand(rng, (b, h, w, 256))) for _ in range(2))
     lo, d = cost_volume.shift_range(max_shift, symmetric)
@@ -376,7 +381,10 @@ def test_gwc_kernel_backward_matches_plain(cuda, dtype, b, h, w, max_shift, symm
     before = cost_volume.gwc_volume_norm_bwd.launches
     got = cost_volume.gwc_volume_norm_bwd(left, right, gbar, max_shift, 32, symmetric)
     torch.cuda.synchronize()
-    assert cost_volume.gwc_volume_norm_bwd.launches == before + 1
+    # one launch per slab of planes: one at D = 16
+    slabs = cost_volume._lib_bwd().gwc_volume_bwd_slabs(d)
+    assert (d <= 16) == (slabs == 1)
+    assert cost_volume.gwc_volume_norm_bwd.launches == before + slabs
     want = cost_volume.gwc_volume_norm_bwd_plain(left, right, gbar, max_shift, 32, symmetric)
     for g, w_ in zip(got, want):
         assert g.dtype == dtype
