@@ -46,6 +46,23 @@
    step on the CPU (plain versions) from the same weights and batch: the
    loss terms, the BN running statistics after the step and every gradient
    (``TRAIN_BOUNDS``).
+8. Trainer: the paper's two-stage recipe through the port's command lines
+   (``cli.train.main``, ``cli.evaluate.main``) on a US3D-format file
+   dataset written at full width into a temporary directory (1024x1024 PNG
+   views, float-TIFF disparity in the symmetric range, PNG labels; 4 train
+   and 3 test rows), bf16, batch 2, 4 loader threads: stage 1 for an epoch
+   (2 steps, a checkpoint, an eval epoch ending in a ragged batch of 1);
+   stage 2 warm-started from it (the printed count of partially loaded
+   tensors must be the one ``restore_partial`` gives on the CPU, where a
+   stage-2-only leaf keeps its own value); a resumed second epoch of stage
+   2 (it must start at epoch 1, with a finite loss); then the evaluate
+   command with ``--save-dir`` (3 uint16 1024x1024 ``<stem>_disp.png``).
+   Every train step of stage 2 must launch ``TRAIN_LAUNCHES`` and every
+   eval batch ``EVAL_LAUNCHES``; stage 1 must launch every kernel.  Prints
+   the median ms per step of each stage, each epoch's host and loader time
+   (its wall time less its steps'), the eval epoch's time, peak memory,
+   the host's time for one train sample and the native sample prep's
+   status.
 
 Prints one JSON line of per-kernel numbers, then, last, the ``ok`` line.
 Exits non-zero (and prints no result) without a CUDA device or outside the
@@ -56,6 +73,8 @@ from __future__ import annotations
 
 import copy
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -111,6 +130,9 @@ TRAIN_BATCH = 2
 TRAIN_WARM, TRAIN_TIMED = 2, 5
 TRAIN_LAUNCHES = {"K1-s1": 18, "K1-s2": 4, "K2": 1, "K3": 9, "K3-dw": 13, "K4": 1}
 EVAL_LAUNCHES = {"K1-s1": 9, "K1-s2": 4, "K2": 1, "K3": 0, "K3-dw": 0, "K4": 0}
+# The trainer phase: train and test rows of its file dataset, loader threads.
+TRAINER_ROWS = (4, 3)
+TRAINER_WORKERS = 4
 # K4 at the main path's shape at the train batch: features [2, 128, 128, 256].
 K4_SHAPE = ((TRAIN_BATCH, 128, 128, 256), 32, 8)
 # K4 at symmetric plane counts above one launch's slab, the smallest that
@@ -645,6 +667,185 @@ def run_train_agreement(ops):
         raise AssertionError("the fp32 card train step and the CPU step disagree")
 
 
+def write_us3d(root: str, n_rows: int, size: int, seed: int) -> list[str]:
+    """A US3D-format list: integer-shift PNG pairs, float-TIFF disparity in
+    the symmetric range, PNG labels constant on 64x64 blocks."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n_rows):
+        right = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+        d = int(rng.integers(-24, 25))
+        Image.fromarray(np.roll(right, d, axis=1)).save(f"{root}/l{i}.png")
+        Image.fromarray(right).save(f"{root}/r{i}.png")
+        disp = (d + rng.uniform(-0.25, 0.25, (size, size))).astype(np.float32)
+        Image.fromarray(disp, mode="F").save(f"{root}/d{i}.tif")
+        blocks = rng.integers(0, 6, (size // 64, size // 64)).astype(np.uint8)
+        Image.fromarray(np.kron(blocks, np.ones((64, 64), np.uint8))).save(f"{root}/s{i}.png")
+        rows.append(f"l{i}.png r{i}.png d{i}.tif s{i}.png")
+    return rows
+
+
+def run_trainer(ops):
+    """The two-stage recipe through the command lines (docstring, item 8).
+    Each step the trainer takes is timed from a synchronized device to a
+    synchronized device, with the launches it made."""
+    import tempfile
+
+    from semstereo_tpu_torch.cli import evaluate as cli_evaluate
+    from semstereo_tpu_torch.cli import train as cli_train
+    from semstereo_tpu_torch.config import TRAIN_PRESETS
+    from semstereo_tpu_torch.data import Us3dDataset, native
+    from semstereo_tpu_torch.train import checkpoint as ckpt
+    from semstereo_tpu_torch.train import init_state
+    from semstereo_tpu_torch.train import trainer as trainer_mod
+
+    steps = []  # (kind, ms, launches) of every step in call order
+
+    def instrumented(kind, make):
+        def factory(cfg):
+            step = make(cfg)
+
+            def run(state, batch):
+                torch.cuda.synchronize()
+                before, t0 = counts(ops), time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                after = counts(ops)
+                steps.append((kind, 1e3 * (time.perf_counter() - t0),
+                              {k: after[k] - before[k] for k in after}))
+                return out
+            return run
+        return factory
+
+    makers = trainer_mod.make_train_step, trainer_mod.make_eval_step
+    trainer_mod.make_train_step = instrumented("train", makers[0])
+    trainer_mod.make_eval_step = instrumented("eval", makers[1])
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root, run1, run2, dump = (f"{tmp}/{d}" for d in ("data", "stage1", "stage2", "dump"))
+            os.makedirs(root)
+            t0 = time.perf_counter()
+            rows = write_us3d(root, TRAINER_ROWS[0] + TRAINER_ROWS[1], 1024, seed=3)
+            for name, part in (("train", rows[:TRAINER_ROWS[0]]), ("test", rows[TRAINER_ROWS[0]:])):
+                with open(f"{root}/{name}.txt", "w") as f:
+                    f.write("\n".join(part) + "\n")
+            log(f"trainer: dataset written in {time.perf_counter() - t0:.1f} s")
+            # the host's cost of one train sample (decode, normalize, gt
+            # pyramid), one thread; the first call builds the native prep
+            ds = Us3dDataset(root, f"{root}/train.txt", True)
+            sample_ms = []
+            for i in range(TRAINER_ROWS[0]):
+                t = time.perf_counter()
+                ds.get(i, np.random.default_rng(i))
+                sample_ms.append(1e3 * (time.perf_counter() - t))
+            common = ["--datapath", root, "--trainlist", f"{root}/train.txt", "--testlist",
+                      f"{root}/test.txt", "--compute-dtype", "bfloat16", "--batch-size",
+                      str(TRAIN_BATCH), "--test-batch-size", str(TRAIN_BATCH), "--save-freq", "1",
+                      "--num-workers", str(TRAINER_WORKERS), "--device", "cuda"]
+            res = {"sample_ms": sample_ms}
+
+            def stage(name, argv, logdir):
+                """One command line run with the counts zeroed just before
+                and read just after; returns (trainer, its new log text, its
+                steps)."""
+                logfile = f"{logdir}/log.log"
+                seen = os.path.getsize(logfile) if os.path.exists(logfile) else 0
+                first = len(steps)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts(ops)
+                t = time.perf_counter()
+                out = cli_train.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                launches = counts(ops)
+                with open(logfile) as f:
+                    f.seek(seen)
+                    text = f.read()
+                mine = steps[first:]
+                train_ms = [ms for kind, ms, _ in mine if kind == "train"]
+                res[name] = dict(
+                    wall_s=wall, launches=launches, train_steps=len(train_ms),
+                    eval_batches=sum(kind == "eval" for kind, _, _ in mine),
+                    ms_per_step=train_ms, ms_per_step_median=statistics.median(train_ms),
+                    epochs=[dict(epoch=r["epoch"], train_s=r["train_s"],
+                                 steps_s=sum(r["step_s"]),
+                                 host_and_loader_s=r["train_s"] - sum(r["step_s"]),
+                                 eval_s=r.get("eval_s")) for r in out.history],
+                    max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+                return out, text, mine
+
+            stage("stage1", ["--preset", "us3d_stage1", "--logdir", run1,
+                                          "--epochs", "1", *common], run1)
+            if not all(v > 0 for v in res["stage1"]["launches"].values()):
+                raise AssertionError(f"stage 1 launches {res['stage1']['launches']}")
+
+            _, text, mine2 = stage("stage2", ["--preset", "us3d_stage2", "--logdir", run2,
+                                               "--loadckpt", run1, "--epochs", "1", *common], run2)
+            found = re.search(r"partially loaded (\d+) tensors from", text)
+            cpu_cfg = TRAIN_PRESETS["us3d_stage2"]
+            fresh = init_state(cpu_cfg, device="cpu")
+            before = {k: v.clone() for k, v in fresh.model.state_dict().items()}
+            _, n_cpu = ckpt.restore_partial(run1, fresh)
+            stage1_sd = torch.load(ckpt.checkpoint_path(run1, 0), weights_only=True)["model"]
+            after = fresh.model.state_dict()
+            own = [k for k in after if k.startswith("hourglass.")]
+            if not (found and int(found.group(1)) == n_cpu > 0):
+                raise AssertionError(f"stage 2 printed {found and found.group(0)}; "
+                                     f"restore_partial on the CPU loads {n_cpu}")
+            if not (own and all(k not in stage1_sd and torch.equal(after[k], before[k])
+                                for k in own)
+                    and all(torch.equal(after[k], v) for k, v in stage1_sd.items())):
+                raise AssertionError("the partial restore took a stage-2-only leaf or "
+                                     "missed a stage-1 one")
+            res["stage2"]["partially_loaded"] = n_cpu
+
+            t3, text, mine3 = stage("resume", ["--preset", "us3d_stage2", "--logdir", run2,
+                                               "--resume", "--epochs", "2", *common], run2)
+            first_loss = re.search(r"Epoch 1/2, Iter 0/\d+, loss = (\S+),", text)
+            if not (f"resumed from {run2} at epoch 1" in text and first_loss
+                    and np.isfinite(float(first_loss.group(1)))
+                    and [r["epoch"] for r in t3.history] == [1]):
+                raise AssertionError(f"the resumed run did not start at epoch 1: {text[:600]}")
+            res["resume"]["first_loss"] = float(first_loss.group(1))
+            res["stage2_ms_per_step_median"] = statistics.median(
+                res["stage2"]["ms_per_step"] + res["resume"]["ms_per_step"])
+
+            for kind, want in (("train", TRAIN_LAUNCHES), ("eval", EVAL_LAUNCHES)):
+                got = [l for k, _, l in mine2 + mine3 if k == kind]
+                if not got or any(l != want for l in got):
+                    raise AssertionError(f"stage 2 {kind} launches {got}, expected {want} each")
+
+            first = len(steps)
+            reset_counts(ops)
+            t = time.perf_counter()
+            cli_evaluate.main(["--preset", "us3d_stage2", "--loadckpt", run2, "--datapath", root,
+                               "--testlist", f"{root}/test.txt", "--batch-size", str(TRAIN_BATCH),
+                               "--save-dir", dump, "--device", "cuda"])
+            torch.cuda.synchronize()
+            evals = [l for _, _, l in steps[first:]]
+            res["evaluate"] = dict(wall_s=time.perf_counter() - t, launches=counts(ops),
+                                   eval_batches=len(evals), dtype="float32")
+            if any(l != EVAL_LAUNCHES for l in evals):
+                raise AssertionError(f"evaluate launches {evals}")
+            from PIL import Image
+
+            pngs = sorted(os.listdir(dump))
+            arrays = [np.asarray(Image.open(f"{dump}/{p}")) for p in pngs]
+            if not (pngs == [r.split()[0].replace(".png", "_disp.png")
+                             for r in rows[TRAINER_ROWS[0]:]]
+                    and all(a.dtype == np.uint16 and a.shape == (1024, 1024) for a in arrays)):
+                raise AssertionError(f"dumps {pngs} {[(a.dtype, a.shape) for a in arrays]}")
+            res["evaluate"]["dumps"] = pngs
+    finally:
+        trainer_mod.make_train_step, trainer_mod.make_eval_step = makers
+    res["native_sample_prep"] = native.status()
+    log("trainer", json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("no CUDA device: the port's kernels and main path run on the card")
@@ -681,7 +882,9 @@ def main() -> int:
     train = run_train(ops)
     t = phase("train path", t)
     run_train_agreement(ops)
-    phase("train agreement", t)
+    t = phase("train agreement", t)
+    run_trainer(ops)
+    phase("trainer", t)
 
     kernels = []
     meta = {

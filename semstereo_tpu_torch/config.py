@@ -1,15 +1,16 @@
-"""Configuration of the port: a copy of what the model and the train step
-read from ``semstereo_tpu.config`` (the port keeps its own so that it
-imports nothing of the JAX package).
+"""Configuration of the port: a copy of what the model, the train step,
+the data layer and the trainer read from ``semstereo_tpu.config`` (the port
+keeps its own so that it imports nothing of the JAX package).
 
-``PRESETS`` maps each preset name to its ``ModelConfig``; ``TRAIN_PRESETS``
-to its whole ``TrainConfig`` (model, valid-mask policy, optimizer, losses).
+``TRAIN_PRESETS`` maps each preset name to its whole ``TrainConfig``
+(model, data paths and lists, valid-mask policy, optimizer, losses,
+logdir); ``PRESETS`` to its ``ModelConfig``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 # Fused-pyramid channel plan (FeatUp outputs) and its chal_* reductions.
 CHANS = (128, 256, 512, 768, 512)
@@ -34,22 +35,17 @@ class ModelConfig:
         return self.name != "SemStereo_WHU"
 
 
-PRESETS = {
-    "us3d_stage1": ModelConfig(maxdisp=64, att_weights_only=True),
-    "us3d_stage2": ModelConfig(maxdisp=64),
-    "whu_stage1": ModelConfig(name="SemStereo_WHU", maxdisp=128, att_weights_only=True),
-    "whu_stage2": ModelConfig(name="SemStereo_WHU", maxdisp=128),
-    "whu_lrsc_stage1": ModelConfig(name="SemStereo_WHU", maxdisp=128, att_weights_only=True),
-    "whu_lrsc_stage2": ModelConfig(name="SemStereo_WHU", maxdisp=128),
-    "sceneflow": ModelConfig(maxdisp=64),
-    "kitti": ModelConfig(maxdisp=64, num_classes=20),
-    "cityscapes": ModelConfig(maxdisp=64, num_classes=20),
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    dataset: str = "us3d"
+    dataset: str = "us3d"  # registry key of data.__datasets__
+    datapath: str = "data/us3d/JAX"
+    trainlist: str = "data/us3d/JAX/train.txt"
+    testlist: str = "data/us3d/JAX/test.txt"
+    batch_size: int = 4
+    test_batch_size: int = 4
+    num_workers: int = 4  # loader threads
+    prefetch: int = 2  # batches the loader keeps ready
+    crop_size: Optional[Tuple[int, int]] = None  # (H, W) train crop, dataset-specific
     # Valid-disparity mask of the losses and metrics: 'symmetric' ->
     # -maxdisp <= d < maxdisp (US3D); 'positive' -> 0 < d < maxdisp (WHU,
     # and KITTI-style disparity maps where 0 means no ground truth);
@@ -67,6 +63,7 @@ class DataConfig:
 class OptimConfig:
     lr: float = 1e-3
     betas: Tuple[float, float] = (0.9, 0.999)
+    epochs: int = 48
     # "12,22,30,38,44:2" => divide lr by 2 at each listed epoch (cumulative)
     lrepochs: str = "12,22,30,38,44:2"
     # Microbatches per step: the batch is split into this many chunks, run in
@@ -91,31 +88,70 @@ class TrainConfig:
     optim: OptimConfig = OptimConfig()
     loss: LossConfig = LossConfig()
     seed: int = 1
+    logdir: str = "checkpoints/run"
+    loadckpt: str = ""  # partial warm start (stage 1 -> stage 2)
+    resume: bool = False
+    summary_freq: int = 50
+    save_freq: int = 4  # epochs between checkpoints
     compute_dtype: str = "float32"  # float32 | bfloat16 (model compute)
+    # Seg-metric aggregation: False derives PA/MPA/mIoU from one confusion
+    # matrix over the eval set; True averages per-batch values through the
+    # NaN-skipping per-key meter (the original torch code's logs).
+    eval_seg_per_batch: bool = False
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
 
 
-def _train(name: str, dataset: str, loss: LossConfig) -> TrainConfig:
-    return TrainConfig(model=PRESETS[name], data=DataConfig(dataset=dataset), loss=loss)
+def _us3d(stage1: bool) -> TrainConfig:
+    return TrainConfig(
+        model=ModelConfig(maxdisp=64, att_weights_only=stage1),
+        data=DataConfig(dataset="us3d"),
+        loss=LossConfig(use_seg=True, use_lrsc=True),
+        logdir=f"checkpoints/us3d_stage{1 if stage1 else 2}",
+    )
 
 
-_WHU_LOSS = LossConfig(use_seg=False, use_lrsc=False)
+def _whu(stage1: bool, lrsc_self: bool) -> TrainConfig:
+    tag = "whu_lrsc" if lrsc_self else "whu"
+    return TrainConfig(
+        model=ModelConfig(name="SemStereo_WHU", maxdisp=128, att_weights_only=stage1),
+        data=DataConfig(dataset="WhuDataset", datapath="data/whu",
+                        trainlist="data/whu/train.txt", testlist="data/whu/test.txt"),
+        loss=LossConfig(use_seg=False, use_lrsc=False, use_lrsc_self=lrsc_self),
+        logdir=f"checkpoints/{tag}_stage{1 if stage1 else 2}",
+    )
+
+
+def _cropped(dataset: str, trainlist: str, testlist: str, num_classes: int,
+             loss: LossConfig) -> TrainConfig:
+    """SceneFlow, KITTI and Cityscapes: 256x512 train crops."""
+    return TrainConfig(
+        model=ModelConfig(maxdisp=64, num_classes=num_classes),
+        data=DataConfig(dataset=dataset, datapath=f"data/{dataset}",
+                        trainlist=f"filenames/{trainlist}", testlist=f"filenames/{testlist}",
+                        crop_size=(256, 512)),
+        loss=loss,
+        logdir=f"checkpoints/{dataset}",
+    )
+
+
+# KITTI and Cityscapes: 19 classes and the ignore class 19.
 _SEG_LRSC_19 = LossConfig(use_seg=True, use_lrsc=True, ignore_index=19)
 TRAIN_PRESETS = {
-    "us3d_stage1": _train("us3d_stage1", "us3d", LossConfig()),
-    "us3d_stage2": _train("us3d_stage2", "us3d", LossConfig()),
-    "whu_stage1": _train("whu_stage1", "WhuDataset", _WHU_LOSS),
-    "whu_stage2": _train("whu_stage2", "WhuDataset", _WHU_LOSS),
-    "whu_lrsc_stage1": _train("whu_lrsc_stage1", "WhuDataset",
-                              LossConfig(use_seg=False, use_lrsc=False, use_lrsc_self=True)),
-    "whu_lrsc_stage2": _train("whu_lrsc_stage2", "WhuDataset",
-                              LossConfig(use_seg=False, use_lrsc=False, use_lrsc_self=True)),
-    "sceneflow": _train("sceneflow", "sceneflow", LossConfig(use_seg=False, use_lrsc=False)),
-    "kitti": _train("kitti", "kitti", _SEG_LRSC_19),
-    "cityscapes": _train("cityscapes", "cityscapes", _SEG_LRSC_19),
+    "us3d_stage1": _us3d(True),
+    "us3d_stage2": _us3d(False),
+    "whu_stage1": _whu(True, False),
+    "whu_stage2": _whu(False, False),
+    "whu_lrsc_stage1": _whu(True, True),
+    "whu_lrsc_stage2": _whu(False, True),
+    "sceneflow": _cropped("sceneflow", "sceneflow_train.txt", "sceneflow_test.txt", 6,
+                          LossConfig(use_seg=False, use_lrsc=False)),
+    "kitti": _cropped("kitti", "kitti15_train.txt", "kitti15_val.txt", 20, _SEG_LRSC_19),
+    "cityscapes": _cropped("cityscapes", "cityscapes_train.txt", "cityscapes_val.txt", 20,
+                           _SEG_LRSC_19),
 }
+PRESETS = {name: cfg.model for name, cfg in TRAIN_PRESETS.items()}
 
 
 def parse_lrepochs(spec: str) -> tuple[list[int], float]:

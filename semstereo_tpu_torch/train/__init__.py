@@ -1,9 +1,11 @@
-"""Training of the port: state, optimizer and the train and eval steps."""
+"""Training of the port: state, optimizer, the train and eval steps,
+checkpoints (``train.checkpoint``) and the epoch loop (``train.trainer``)."""
 
 from semstereo_tpu_torch.train.state import (
     TrainState,
     build_optimizer,
     init_state,
+    merge_partial_params,
     set_learning_rate,
 )
 from semstereo_tpu_torch.train.steps import (
@@ -15,6 +17,6 @@ from semstereo_tpu_torch.train.steps import (
 )
 
 __all__ = [
-    "TrainState", "build_optimizer", "init_state", "set_learning_rate",
+    "TrainState", "build_optimizer", "init_state", "merge_partial_params", "set_learning_rate",
     "assemble_train_loss", "make_eval_step", "make_grads_fn", "make_train_step", "valid_mask",
 ]

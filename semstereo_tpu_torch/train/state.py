@@ -40,3 +40,19 @@ def set_learning_rate(state: TrainState, cfg: TrainConfig, epoch: int) -> TrainS
         group["lr"] = lr
     state.epoch = epoch
     return state
+
+
+def merge_partial_params(current: dict, loaded: dict) -> tuple[dict, int]:
+    """Filtered partial load of a state_dict: each entry of ``current``
+    whose key is in ``loaded`` with the same shape takes the loaded value
+    (cast to the current dtype); the rest stay.  Returns (merged, number of
+    entries taken) — the stage-1 -> stage-2 warm start."""
+    merged, n_loaded = {}, 0
+    for key, cur in current.items():
+        cand = loaded.get(key)
+        if cand is not None and tuple(cand.shape) == tuple(cur.shape):
+            merged[key] = cand.to(cur.dtype)
+            n_loaded += 1
+        else:
+            merged[key] = cur
+    return merged, n_loaded

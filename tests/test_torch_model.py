@@ -1,6 +1,6 @@
 """The port's SemStereo eval graph against the JAX package's, on the CPU in
 fp32, with the same weights: H=W=128, maxdisp 64, stage 2 and stage 1
-(``att_weights_only``), and stage 1 of the positive-range WHU model.
+(``att_weights_only``), and stages 1 and 2 of the positive-range WHU model.
 
 Weights come from numpy (He-normal kernels, BN statistics and affine
 perturbed), shaped by the JAX model's ``eval_shape``, and go to JAX as they
@@ -30,6 +30,7 @@ from semstereo_tpu.utils.torch_convert import convert_semstereo_state_dict
 from semstereo_tpu_torch.config import ModelConfig
 from semstereo_tpu_torch.convert import load_flax_variables
 from semstereo_tpu_torch.models import SemStereo, build_model
+from tests._torch_threads import two_torch_threads  # noqa: F401
 
 H = W = 128
 MAXDISP = 64
@@ -110,6 +111,12 @@ def whu_stage1():
     return _run(att_weights_only=True, symmetric=False)
 
 
+@pytest.fixture(scope="module")
+def whu_stage2():
+    """The whole positive-range model (stage 2 of the WHU recipes)."""
+    return _run(att_weights_only=False, symmetric=False)
+
+
 def _assert_disp_close(got, ref):
     signed = np.asarray(got, np.float64) - np.asarray(ref, np.float64)
     diff = np.abs(signed)
@@ -120,7 +127,7 @@ def _assert_disp_close(got, ref):
     assert float((diff > 1.0).mean()) < 0.08
 
 
-@pytest.mark.parametrize("stage", ["stage2", "stage1", "whu_stage1"])
+@pytest.mark.parametrize("stage", ["stage2", "stage1", "whu_stage1", "whu_stage2"])
 def test_eval_parity(stage, request):
     r = request.getfixturevalue(stage)
     got_disp = r["port"]["disp"][0].numpy()

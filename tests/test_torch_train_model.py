@@ -3,9 +3,13 @@ from the same weights and batch: the train forward (all four disparities,
 ``label_l``, ``label_r``), the loss terms, the BN running statistics after
 the step, every gradient, and the Adam update against optax.
 
-Config: US3D stage 2 cut to the tiny size of tests/test_train_integration.py
+Configs: US3D stage 2 cut to the tiny size of tests/test_train_integration.py
 (maxdisp 16, attention windows (1,2,2)) at 64x64, batch 2, with top-k set to
-keep every plane (``topk`` = the 8 planes at /4, ``refine_topk`` = 8).  With
+keep every plane (``topk`` = the 8 planes at /4, ``refine_topk`` = 8); the
+same cut of US3D stage 1 (``att_weights_only``, whose checkpoints feed stage
+2) and of WHU LRSC stage 2 (the positive range, at maxdisp 32, the least
+that range takes, so again 8 planes at /4; and the LRSC loss on the
+predicted left labels, ``use_lrsc_self``).  With
 a hard top-k choice, a change of the weights at the level of fp32 rounding
 can move a plane in or out of the top k, and the plane takes its share of
 the gradient with it; two runs that round differently then differ by far
@@ -50,7 +54,14 @@ from semstereo_tpu.train.state import build_model as jbuild_model
 from semstereo_tpu.train.state import build_optimizer as jbuild_optimizer
 from semstereo_tpu.train.steps import make_grads_fn as jmake_grads_fn
 from semstereo_tpu.utils.torch_convert import convert_semstereo_state_dict
-from semstereo_tpu_torch.config import ModelConfig, OptimConfig, TrainConfig
+from semstereo_tpu_torch.config import (
+    DataConfig,
+    LossConfig,
+    ModelConfig,
+    OptimConfig,
+    TrainConfig,
+)
+from semstereo_tpu_torch import losses
 from semstereo_tpu_torch.convert import load_flax_variables
 from semstereo_tpu_torch.data import SyntheticStereoDataset
 from semstereo_tpu_torch.models import SemStereo
@@ -62,6 +73,7 @@ from semstereo_tpu_torch.train import (
     make_grads_fn,
     make_train_step,
 )
+from tests._torch_threads import two_torch_threads  # noqa: F401
 
 H = W = 64
 BATCH = 2
@@ -72,8 +84,8 @@ CFG = TrainConfig(model=ModelConfig(**MODEL))
 GRAD_REL = 0.05
 
 
-def _numpy_variables(seed):
-    jmodel = jbuild_model(JCFG)
+def _numpy_variables(seed, jcfg=JCFG):
+    jmodel = jbuild_model(jcfg)
     dummy = jnp.zeros((BATCH, H, W, 3), jnp.float32)
     shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), dummy, dummy,
                                                  train=False))
@@ -101,7 +113,8 @@ def _numpy_variables(seed):
     v = jax.tree_util.tree_map_with_path(fill, shapes)
     params, stats = v["params"], v["batch_stats"]
     params["classif_att"]["conv1"]["kernel"] *= 8.0
-    params["classif"]["conv1"]["kernel"] *= 8.0
+    if "classif" in params:
+        params["classif"]["conv1"]["kernel"] *= 8.0
     return params, stats
 
 
@@ -110,16 +123,21 @@ def _flat(tree):
             for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.fixture(scope="module")
-def step():
-    params, stats = _numpy_variables(seed=3)
-    batch = SyntheticStereoDataset(BATCH, H, W, MODEL["maxdisp"]).batch(0, BATCH)
+def _grads_against_jax(jcfg, cfg, seed):
+    """One step's gradients, loss terms, outputs and BN statistics of both
+    packages from the same numpy weights and synthetic batch."""
+    params, stats = _numpy_variables(seed, jcfg)
+    batch = SyntheticStereoDataset(BATCH, H, W, cfg.model.maxdisp,
+                                   symmetric=cfg.model.symmetric).batch(0, BATCH)
     jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
-    jgrads, (jstats, jaux, jout, _) = jax.jit(jmake_grads_fn(JCFG))(params, stats, jbatch)
+    jgrads, (jstats, jaux, jout, _) = jax.jit(jmake_grads_fn(jcfg))(params, stats, jbatch)
 
-    model = SemStereo(**MODEL).train()
+    m = cfg.model
+    model = SemStereo(maxdisp=m.maxdisp, topk=m.topk, refine_topk=m.refine_topk,
+                      att_window1=m.att_window1, att_window2=m.att_window2,
+                      att_weights_only=m.att_weights_only, symmetric=m.symmetric).train()
     load_flax_variables(model, params, stats)
-    aux, out, _ = make_grads_fn(CFG)(model, batch)
+    aux, out, _ = make_grads_fn(cfg)(model, batch)
     sd = {n: p.grad for n, p in model.named_parameters()}
     sd.update(model.named_buffers())
     grads, new_stats, unused = convert_semstereo_state_dict(sd)
@@ -130,29 +148,39 @@ def step():
                 out=out, jgrads_tree=jgrads)
 
 
-def test_train_forward_matches_jax(step):
+@pytest.fixture(scope="module")
+def step():
+    return _grads_against_jax(JCFG, CFG, seed=3)
+
+
+def _check_forward(step, n_disp, absent=(), apart=(), max_px=0.1):
+    """Loss terms (but those in ``apart``, checked by the caller), outputs:
+    each disparity's median |diff| < 1e-3 px, 99th percentile < 0.1 px and
+    max < ``max_px``."""
     assert set(step["aux"]) == set(step["jaux"]) == {"disp_loss", "label_loss", "lrsc_loss",
-                                                     "loss"}
+                                                     "loss"} - set(absent)
     for k, v in step["jaux"].items():
-        np.testing.assert_allclose(step["aux"][k], v, rtol=1e-4, err_msg=k)
+        if k not in apart:
+            np.testing.assert_allclose(step["aux"][k], v, rtol=1e-4, err_msg=k)
     out, jout = step["out"], step["jout"]
-    assert len(out["disp"]) == len(jout["disp"]) == 4
+    assert len(out["disp"]) == len(jout["disp"]) == n_disp
     for got, want in zip(out["disp"], jout["disp"]):
         assert got.shape == want.shape
         diff = np.abs(got.numpy() - want)
-        assert float(np.median(diff)) < 1e-3 and float(diff.max()) < 0.1
+        assert float(np.median(diff)) < 1e-3 and float(np.quantile(diff, 0.99)) < 0.1
+        assert float(diff.max()) < max_px
     for key in ("label_l", "label_r"):
         np.testing.assert_allclose(out[key].numpy(), jout[key], rtol=1e-3, atol=2e-3)
 
 
-def test_train_batch_stats_match_jax(step):
+def _check_batch_stats(step):
     assert step["unused"] == []
     assert set(step["stats"]) == set(step["jstats"])
     for path, want in step["jstats"].items():
         np.testing.assert_allclose(step["stats"][path], want, rtol=1e-4, atol=1e-4, err_msg=path)
 
 
-def test_train_gradients_match_jax(step):
+def _check_gradients(step, min_modules):
     got, want = step["grads"], step["jgrads"]
     assert set(got) == set(want)
     total = np.sqrt(sum(float(np.sum(v ** 2)) for v in want.values()))
@@ -165,9 +193,83 @@ def test_train_gradients_match_jax(step):
         err[module] += float(np.sum((got[path] - w_) ** 2))
         norm[module] += float(np.sum(w_ ** 2))
     rel = {m: np.sqrt(err[m] / norm[m]) for m in norm}
-    assert len(rel) >= 25
+    assert len(rel) >= min_modules
     bad = {m: r for m, r in rel.items() if not r <= GRAD_REL}
     assert not bad, bad
+
+
+def test_train_forward_matches_jax(step):
+    _check_forward(step, n_disp=4)
+
+
+def test_train_batch_stats_match_jax(step):
+    _check_batch_stats(step)
+
+
+def test_train_gradients_match_jax(step):
+    _check_gradients(step, min_modules=25)
+
+
+# The recipes beside US3D stage 2 that the trainer runs: (model, loss,
+# dataset, train outputs, loss terms it lacks, top-level modules with a
+# gradient at least, bound on any disparity's largest |diff| in px).  The
+# WHU stage-2 disparities are sensitive to summation order at this size:
+# the port's own output moves by up to 0.115 px between 1 and 8 intra-op
+# threads (and the port against JAX by 0.078-0.179 px over 1-8 threads),
+# on under 0.2 % of pixels, with every plane kept and the planes in index
+# order.  So there the largest |diff| may reach 0.5 px; the median and the
+# 99th percentile keep their bounds, and a fault (a wrong tap, shift or
+# mask) moves most pixels by the order of the disparity itself.
+RECIPES = {
+    "us3d_stage1": (dict(MODEL, att_weights_only=True), {}, "us3d", 2, (), 15, 0.1),
+    "whu_lrsc_stage2": (dict(MODEL, maxdisp=32),
+                        dict(use_seg=False, use_lrsc=False, use_lrsc_self=True),
+                        "WhuDataset", 4, ("label_loss",), 25, 0.5),
+}
+
+
+def _lrsc_targets(label_l, disp):
+    """The LRSC CE's targets: the argmax left labels gathered at column
+    trunc(clip(x - d, 0, W - 1)) (``ops.warp.lrsc_label_warp``)."""
+    w = disp.shape[-1]
+    xi = np.clip(np.arange(w, dtype=np.float32) - disp, 0, w - 1).astype(np.int64)
+    return np.take_along_axis(np.argmax(label_l, axis=-1), xi, axis=2)
+
+
+@pytest.mark.parametrize("recipe", sorted(RECIPES))
+def test_train_step_matches_jax(recipe):
+    """One step of each further recipe against JAX ``make_grads_fn``: the
+    loss terms and outputs, the BN statistics and the gradients, to the
+    bounds of the US3D stage-2 tests above (the WHU disparities' largest
+    |diff| but, see ``RECIPES``).
+
+    With ``use_lrsc_self`` the LRSC targets are the predicted left labels
+    gathered at the truncated column x - d of the predicted disparity: a
+    hard choice, which a disparity that differs by fp32 rounding flips
+    where x - d lies that close to an integer (one pixel moves the term by
+    about 4e-4 at this size).  So the targets may differ on at most 0.1 %
+    of pixels, and the port's CE on JAX's targets is held to rtol 1e-4."""
+    model_kw, loss_kw, dataset, n_disp, absent, min_modules, max_px = RECIPES[recipe]
+    name = "SemStereo_WHU" if dataset == "WhuDataset" else "SemStereo"
+    jcfg = JTrainConfig(model=JModelConfig(name=name, **model_kw),
+                        data=JDataConfig(dataset=dataset, batch_size=BATCH),
+                        optim=JOptimConfig(lr=1e-3), loss=JLossConfig(**loss_kw))
+    cfg = TrainConfig(model=ModelConfig(name=name, **model_kw),
+                      data=DataConfig(dataset=dataset), loss=LossConfig(**loss_kw))
+    step = _grads_against_jax(jcfg, cfg, seed=5)
+    apart = ("lrsc_loss", "loss") if loss_kw.get("use_lrsc_self") else ()
+    _check_forward(step, n_disp=n_disp, absent=absent, apart=apart, max_px=max_px)
+    if apart:
+        out, jout, aux, jaux = step["out"], step["jout"], step["aux"], step["jaux"]
+        want = _lrsc_targets(jout["label_l"], jout["disp"][0])
+        got = _lrsc_targets(out["label_l"].numpy(), out["disp"][0].numpy())
+        assert (got != want).mean() <= 1e-3
+        lrsc = float(losses.cross_entropy(out["label_r"], torch.from_numpy(want)))
+        np.testing.assert_allclose(lrsc, jaux["lrsc_loss"], rtol=1e-4)
+        np.testing.assert_allclose(aux["loss"] - aux["lrsc_loss"] + lrsc, jaux["loss"],
+                                   rtol=1e-4)
+    _check_batch_stats(step)
+    _check_gradients(step, min_modules=min_modules)
 
 
 def test_adam_matches_optax(step):
