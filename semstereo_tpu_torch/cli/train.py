@@ -2,12 +2,18 @@
 
     python -m semstereo_tpu_torch.cli.train --preset us3d_stage1 --datapath ... --trainlist ...
     python -m semstereo_tpu_torch.cli.train --preset us3d_stage2 --loadckpt checkpoints/us3d_stage1
+    torchrun --nproc-per-node 2 -m semstereo_tpu_torch.cli.train --preset ... --data-parallel 2
 
 Presets carry the whole recipe (model flags, losses, data paths, learning
 rate schedule, logdir); a flag given here overrides its preset's value.  It
-runs on the card unless ``--device cpu`` is given.  The flags of data,
-disparity and spatial parallelism, ``--remat`` and
-``--pretrained-backbone`` are not ported yet and are refused.
+runs on the card unless ``--device cpu`` is given.  Started by ``torchrun``
+(``WORLD_SIZE`` in the environment), it joins the process group first
+(NCCL on the card, gloo on the CPU) and trains data-parallel, one process
+per card, ``--batch-size`` being the global batch; process 0 writes
+``log.log``, the TensorBoard logs and the checkpoints.  ``--remat`` and
+``--pretrained-backbone`` are the model's ``remat`` and
+``pretrained_backbone``.  Disparity and spatial parallelism are not ported:
+``--disp-parallel`` and ``--space-parallel`` above 1 are refused.
 """
 
 from __future__ import annotations
@@ -17,7 +23,10 @@ import dataclasses
 import os
 import sys
 
+import torch.distributed as dist
+
 from semstereo_tpu_torch.config import TRAIN_PRESETS, TrainConfig
+from semstereo_tpu_torch.parallel import init_process_group, process_index
 from semstereo_tpu_torch.train.trainer import Trainer
 from semstereo_tpu_torch.utils import TeeLogger
 
@@ -59,8 +68,24 @@ def parse_config(argv=None) -> tuple[TrainConfig, argparse.Namespace]:
     p.add_argument("--tensorboard", action="store_true")
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
                    help="model compute precision (fp32 master parameters either way)")
+    p.add_argument("--remat", nargs="?", const="full",
+                   help="recompute in the backward: bare flag = 'full' (backbone + 3-D "
+                   "hourglasses), or a comma-set of backbone,featup,hourglass,concat,spx")
+    p.add_argument("--pretrained-backbone",
+                   help="timm mobilevitv2_100 state_dict (.pth) loaded into the backbone")
+    p.add_argument("--data-parallel", type=int, default=-1,
+                   help="data-parallel processes (-1: all that torchrun started)")
+    p.add_argument("--disp-parallel", type=int, default=1, help="not ported; must be 1")
+    p.add_argument("--space-parallel", type=int, default=1, help="not ported; must be 1")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     args = p.parse_args(argv)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.disp_parallel != 1 or args.space_parallel != 1:
+        p.error("--disp-parallel and --space-parallel are not ported yet (ROADMAP.md, "
+                "section 1)")
+    if args.data_parallel not in (-1, world):
+        p.error(f"--data-parallel {args.data_parallel} needs as many processes; {world} "
+                f"started (torchrun --nproc-per-node {args.data_parallel})")
 
     cfg = TRAIN_PRESETS[args.preset]
     cfg = cfg.replace(
@@ -73,7 +98,9 @@ def parse_config(argv=None) -> tuple[TrainConfig, argparse.Namespace]:
             grad_accum=args.grad_accum, grad_clip=args.grad_clip)),
         model=dataclasses.replace(cfg.model, **overrides(
             maxdisp=args.maxdisp, topk=args.topk, att_window1=window(args.att_window1),
-            att_window2=window(args.att_window2))),
+            att_window2=window(args.att_window2), pretrained_backbone=args.pretrained_backbone,
+            remat=True if args.remat == "full" else args.remat)),
+        parallel=dataclasses.replace(cfg.parallel, data=args.data_parallel),
         resume=args.resume,
         **overrides(logdir=args.logdir, loadckpt=args.loadckpt, seed=args.seed,
                     save_freq=args.save_freq, compute_dtype=args.compute_dtype),
@@ -83,25 +110,34 @@ def parse_config(argv=None) -> tuple[TrainConfig, argparse.Namespace]:
 
 def main(argv=None) -> Trainer:
     """Trains as ``argv`` asks; returns the Trainer.  stdout is teed into
-    ``<logdir>/log.log`` for the run and restored on return."""
+    ``<logdir>/log.log`` (by process 0) for the run and restored on return;
+    a process group this call joined is left on return."""
     cfg, args = parse_config(argv)
-    os.makedirs(cfg.logdir, exist_ok=True)
+    device = args.device
+    joined = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if joined:
+        device = init_process_group(device)
     stdout = sys.stdout
-    sys.stdout = TeeLogger(os.path.join(cfg.logdir, "log.log"), stream=stdout)
     try:
+        lead = process_index() == 0
+        if lead:
+            os.makedirs(cfg.logdir, exist_ok=True)
+            sys.stdout = TeeLogger(os.path.join(cfg.logdir, "log.log"), stream=stdout)
         writer = None
-        if args.tensorboard:
+        if args.tensorboard and lead:
             from torch.utils.tensorboard import SummaryWriter
 
             writer = SummaryWriter(cfg.logdir)
         print(f"config: {cfg}")
-        trainer = Trainer(cfg, writer=writer, device=args.device)
+        trainer = Trainer(cfg, writer=writer, device=device)
         trainer.train()
         if writer is not None:
             writer.close()
         return trainer
     finally:
         sys.stdout = stdout
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Configuration of the port: a copy of what the model, the train step,
-the data layer and the trainer read from ``semstereo_tpu.config`` (the port
+the data layer, the trainer and data parallelism read from
+``semstereo_tpu.config`` (the port
 keeps its own so that it imports nothing of the JAX package).
 
 ``TRAIN_PRESETS`` maps each preset name to its whole ``TrainConfig``
@@ -29,6 +30,13 @@ class ModelConfig:
     refine_topk: int = 2
     att_window1: Tuple[int, int, int] = (4, 4, 4)
     att_window2: Tuple[int, int, int] = (6, 4, 4)
+    # Recomputation in the backward pass: False/"none" | True/"full"
+    # (backbone + both hourglasses) | a comma-set of {backbone, featup,
+    # hourglass, concat, spx} (models/semstereo.py::remat_components).
+    remat: bool | str = False
+    # A timm mobilevitv2_100 state_dict file loaded into the backbone by
+    # init_state, every backbone tensor required (utils/timm_convert.py).
+    pretrained_backbone: str | None = None
 
     @property
     def symmetric(self) -> bool:
@@ -74,6 +82,16 @@ class OptimConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    data: int = -1  # data-parallel processes; -1: the world size
+    disp: int = 1  # disparity-plane sharding (not ported; must stay 1)
+    space: int = 1  # height-tile sharding (not ported; must stay 1)
+    # BatchNorm statistics over the global batch (all-reduced across the
+    # data-parallel processes), as GSPMD gives the JAX package.
+    sync_bn: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class LossConfig:
     use_seg: bool = True  # supervised label loss on the left head
     use_lrsc: bool = True  # LRSC cross-entropy on the right head (ground-truth left labels)
@@ -86,6 +104,7 @@ class TrainConfig:
     model: ModelConfig = ModelConfig()
     data: DataConfig = DataConfig()
     optim: OptimConfig = OptimConfig()
+    parallel: ParallelConfig = ParallelConfig()
     loss: LossConfig = LossConfig()
     seed: int = 1
     logdir: str = "checkpoints/run"

@@ -6,7 +6,12 @@ the train step and stacks them into numpy batches.  The seeding contract is
 the JAX package's, so the two give equal batches: the epoch's permutation
 comes from ``seed + epoch``, sample ``i`` draws from
 ``default_rng((seed + 1) * 1_000_003 + epoch * 97 + i)``, and shard ``s`` of
-``n`` reads ``idx[s::n]``.  The trainer moves the batches to the device.
+``n`` reads ``idx[s::n]``.  One difference: with ``drop_last`` the
+permutation is first cut to a whole number of global batches
+(``batch_size * n`` rows), so every shard yields the same number of
+batches and step s of the n shards together reads rows ``s*B .. (s+1)*B - 1``
+of the permutation, the rows of step s of one shard at batch B.  The trainer
+moves the batches to the device.
 """
 
 from __future__ import annotations
@@ -62,6 +67,9 @@ class DataLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             idx = np.random.default_rng(self.seed + self.epoch).permutation(idx)
+        if self.drop_last:
+            rows = self.batch_size * self.shard_count
+            idx = idx[: len(idx) // rows * rows]
         return idx[self.shard_index :: self.shard_count]
 
     def __len__(self) -> int:

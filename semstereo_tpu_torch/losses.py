@@ -4,7 +4,10 @@ LRSC left-right semantic-consistency loss (counterpart of
 
 Every loss is a masked mean, sum(loss * mask) / max(sum(mask), 1), so an
 empty mask gives 0.  Label logits are channels-last [B, H, W, C]; targets
-are [B, H, W] class ids (any dtype).
+are [B, H, W] class ids (any dtype).  Under data parallelism the
+denominators (mask sums, the dice term's count) are summed over the
+processes, so each process's loss is its share of the global-batch loss
+(``parallel.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from semstereo_tpu_torch.ops.warp import lrsc_label_warp
+from semstereo_tpu_torch.parallel import global_sum, process_count
 
 # Pyramid weights for (full-res refined, 1/4 refined, full-res att, 1/4 att).
 DISP_WEIGHTS_FULL = (1.0, 0.6, 0.5, 0.3)
@@ -26,7 +30,7 @@ def _one_hot(labels, num_classes: int, dtype):
 
 
 def _masked_mean(x, mask):
-    return torch.sum(x * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.sum(x * mask) / torch.clamp_min(global_sum(torch.sum(mask)), 1.0)
 
 
 def smooth_l1(pred, target, beta: float = 1.0):
@@ -77,7 +81,10 @@ def dice_loss(logits, labels, num_classes: int, ignore_index: int | None = 5):
     sets = torch.sum(prob, dim=(1, 2)) + torch.sum(onehot, dim=(1, 2))
     sets = torch.where(sets == 0, inter, sets)
     dice = (inter + 1e-6) / (sets + 1e-6)
-    return 1.0 - torch.mean(dice)
+    if process_count() == 1:
+        return 1.0 - torch.mean(dice)
+    n = global_sum(dice.numel())  # the mean over the global batch, as shares
+    return dice.numel() / n - torch.sum(dice) / n
 
 
 def label_loss(logits, labels, num_classes: int, attention_weights_only: bool,

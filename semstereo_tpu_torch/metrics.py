@@ -4,8 +4,10 @@
 
 The disparity metrics are per-image masked means averaged over the valid
 images of the batch; an image is valid when its mask covers at least 10 %
-of its pixels with gt > 0.  The confusion matrix is a one-hot product on
-the device.
+of its pixels with gt > 0; under data parallelism the count of valid
+images is summed over the processes, so each process's value is its share
+of the global-batch metric (``parallel.py``).  The confusion matrix is a
+one-hot product on the device, over the process's rows.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from semstereo_tpu_torch.parallel import global_sum
 
 
 def _per_image(metric_elem, mask):
@@ -29,7 +33,8 @@ def _image_validity(d_gt, mask):
 
 
 def _batch_mean(per_image_vals, validity):
-    return torch.sum(per_image_vals * validity) / torch.clamp_min(torch.sum(validity), 1.0)
+    return (torch.sum(per_image_vals * validity)
+            / torch.clamp_min(global_sum(torch.sum(validity)), 1.0))
 
 
 def epe_metric(d_est, d_gt, mask):

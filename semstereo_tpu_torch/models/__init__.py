@@ -23,10 +23,11 @@ __models__ = {
 
 
 def build_model(cfg: ModelConfig = ModelConfig(), device="cuda", dtype=torch.float32,
-                seed: int = 0) -> SemStereo:
+                seed: int = 0, fuse_views=None) -> SemStereo:
     """The eval model of ``cfg`` on ``device`` (the card unless the caller
     asks for the CPU), weights drawn from a ``torch.Generator`` seeded with
-    ``seed``."""
+    ``seed``.  ``fuse_views`` (eval only; None is the two-pass front end)
+    is a model attribute, as in the JAX package, not a config field."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' to run on the CPU")
@@ -34,7 +35,7 @@ def build_model(cfg: ModelConfig = ModelConfig(), device="cuda", dtype=torch.flo
         maxdisp=cfg.maxdisp, num_classes=cfg.num_classes,
         att_weights_only=cfg.att_weights_only, seg_if=cfg.seg_if, stereo_if=cfg.stereo_if,
         topk=cfg.topk, refine_topk=cfg.refine_topk, att_window1=cfg.att_window1,
-        att_window2=cfg.att_window2,
+        att_window2=cfg.att_window2, remat=cfg.remat, fuse_views=fuse_views,
     )
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device=device, dtype=dtype).eval()

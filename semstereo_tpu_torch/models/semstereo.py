@@ -15,13 +15,29 @@ Output (dict), each disparity [B, H, W]:
 The two views go through the shared front end in two passes, left then
 right; in train mode each pass normalises with its own batch statistics and
 moves the running statistics in turn, as flax's mutable ``batch_stats``
-does.  Eval runs under ``torch.inference_mode``.
+does.  Eval runs under ``torch.inference_mode``; with ``fuse_views`` it
+stacks the two views into one batch through ``feature``, ``feature_up``,
+``chal_1``, ``chal_2`` and ``concat_feature`` (BatchNorm uses its running
+statistics there, so the result is the two-pass one).  Train ignores it.
+
+``remat`` recomputes the chosen components' forwards in the backward
+instead of keeping their activations (``remat_components``), each under
+``torch.utils.checkpoint`` (non-reentrant).  The checkpointed function
+takes the parameters it uses as inputs and binds them with
+``functional_call``, so the recomputation uses the tensors the forward used
+(the bf16 casts of the train step's ``functional_call``, not the fp32
+masters it has put back by then); BatchNorm does not move its running
+statistics in the recomputation.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from semstereo_tpu_torch.config import CHANS, CHANS2
 from semstereo_tpu_torch.nn import (
@@ -35,7 +51,7 @@ from semstereo_tpu_torch.nn import (
     SegmentHead,
     SSRUpsample,
 )
-from semstereo_tpu_torch.nn.layers import conv_cl
+from semstereo_tpu_torch.nn.layers import conv_cl, recomputing
 from semstereo_tpu_torch.ops import (
     disparity_regression,
     disparity_variance,
@@ -48,6 +64,37 @@ from semstereo_tpu_torch.ops import (
     warp_strength,
     warp_with_left,
 )
+
+
+REMAT_COMPONENTS = ("backbone", "featup", "hourglass", "concat", "spx")
+
+
+def remat_components(spec) -> frozenset:
+    """The components a remat spec recomputes: False/None/""/"none" none;
+    True/"full" the backbone and both hourglasses; else a comma-set of
+    ``REMAT_COMPONENTS``."""
+    if spec in (False, None, "", "none"):
+        return frozenset()
+    if spec is True or spec == "full":
+        return frozenset({"backbone", "hourglass"})
+    comps = frozenset(s.strip() for s in str(spec).split(",") if s.strip())
+    unknown = comps - set(REMAT_COMPONENTS)
+    if unknown:
+        raise ValueError(f"unknown remat components: {sorted(unknown)}")
+    return comps
+
+
+def _checkpointed(module: nn.Module, *args):
+    """``module(*args)`` under a non-reentrant checkpoint whose function
+    takes the module's parameters (as bound now) as inputs; the
+    recomputation runs under ``recomputing()``."""
+    names, tensors = zip(*module.named_parameters())
+
+    def run(*inputs):
+        return functional_call(module, dict(zip(names, inputs[len(args):])), inputs[:len(args)])
+
+    return checkpoint(run, *args, *tensors, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
 
 class FeatUp(nn.Module):
@@ -87,7 +134,7 @@ class SemStereo(nn.Module):
     def __init__(self, maxdisp: int = 64, num_classes: int = 6, att_weights_only: bool = False,
                  seg_if: bool = True, stereo_if: bool = True, symmetric: bool = True,
                  topk: int = 24, refine_topk: int = 2, att_window1=(4, 4, 4),
-                 att_window2=(6, 4, 4)):
+                 att_window2=(6, 4, 4), remat=False, fuse_views=None):
         super().__init__()
         if stereo_if and not seg_if:
             raise ValueError("stereo_if requires seg_if: SSR upsampling consumes pred_label")
@@ -106,6 +153,8 @@ class SemStereo(nn.Module):
         self.symmetric = symmetric
         self.topk = topk
         self.refine_topk = refine_topk
+        self.remat = remat_components(remat)
+        self.fuse_views = fuse_views
 
         self.feature = MobileViTv2Backbone()
         self.feature_up = FeatUp()
@@ -140,6 +189,13 @@ class SemStereo(nn.Module):
     def _chal(self, i, x):
         return getattr(self, f"chal_{i}")(x)
 
+    def _call(self, component: str, module: nn.Module, *args):
+        """``module(*args)``, recomputed in the backward when ``component``
+        is in ``remat`` and a gradient is being recorded."""
+        if component in self.remat and self.training and torch.is_grad_enabled():
+            return _checkpointed(module, *args)
+        return module(*args)
+
     def forward(self, left, right):
         """left, right [B, H, W, 3] -> dict (see the module docstring)."""
         if self.training:
@@ -147,10 +203,20 @@ class SemStereo(nn.Module):
         with torch.inference_mode():
             return self._forward(left, right)
 
+    def _front(self, x):
+        return self._call("featup", self.feature_up, self._call("backbone", self.feature, x))
+
     def _forward(self, left, right):
         train = self.training
-        feat_l = self.feature_up(self.feature(left))
-        feat_r = self.feature_up(self.feature(right))
+        b = left.shape[0]
+        fuse = bool(self.fuse_views) and not train
+        if fuse:
+            feats = self._front(torch.cat([left, right]))
+            feat_l = [f[:b] for f in feats]
+            feat_r = [f[b:] for f in feats]
+        else:
+            feat_l = self._front(left)
+            feat_r = self._front(right)
         out = {}
         if self.seg_if:
             pred_label = self.head_l(feat_l[0])
@@ -159,14 +225,20 @@ class SemStereo(nn.Module):
         if not self.stereo_if:
             return out
 
-        fl = [self._chal(i, feat_l[i]) for i in range(5)]
-        fr1 = self._chal(1, feat_r[1])
-        fr2 = self._chal(2, feat_r[2])
+        if fuse:  # levels 1 and 2 feed both views: reduce the stacked batch
+            c1, c2 = self._chal(1, feats[1]), self._chal(2, feats[2])
+            fl = [self._chal(0, feat_l[0]), c1[:b], c2[:b], self._chal(3, feat_l[3]),
+                  self._chal(4, feat_l[4])]
+            fr1, fr2 = c1[b:], c2[b:]
+        else:
+            fl = [self._chal(i, feat_l[i]) for i in range(5)]
+            fr1 = self._chal(1, feat_r[1])
+            fr2 = self._chal(2, feat_r[2])
 
-        xspx = self.spx32_16(fl[4], fl[3])
-        xspx = self.spx16_8(xspx, fl[2])
-        xspx = self.spx8_4(xspx, fl[1])
-        xspx = self.spx4_2(xspx, fl[0])
+        xspx = self._call("spx", self.spx32_16, fl[4], fl[3])
+        xspx = self._call("spx", self.spx16_8, xspx, fl[2])
+        xspx = self._call("spx", self.spx8_4, xspx, fl[1])
+        xspx = self._call("spx", self.spx4_2, xspx, fl[0])
         spx_pred = conv_cl(self.spx2[0], xspx)
 
         # stage 1: cosine GWC attention volume at /8
@@ -175,7 +247,7 @@ class SemStereo(nn.Module):
                                symmetric=self.symmetric)  # [B, D8, H8, W8, G]
         corr = conv_cl(self.patch, corr)
         cost_att = self.corr_feature_att_8(corr, fl[2])
-        cost_att = self.hourglass_att(cost_att)
+        cost_att = self._call("hourglass", self.hourglass_att, cost_att)
         cost_att = self.classif_att_(cost_att)
 
         d4 = self.maxdisp // 4 * (2 if self.symmetric else 1)
@@ -210,8 +282,12 @@ class SemStereo(nn.Module):
             return out
 
         # stage 2: top-k sampled concat volume at /4
-        lc = self.concat_feature(fl[1])
-        rc = self.concat_feature(fr1)
+        if fuse:
+            cc = self.concat_feature(torch.cat([fl[1], fr1]))
+            lc, rc = cc[:b], cc[b:]
+        else:
+            lc = self._call("concat", self.concat_feature, fl[1])
+            rc = self._call("concat", self.concat_feature, fr1)
         warped_rc, tiled_lc = warp_with_left(lc, rc, samples)
         # att * concat(tiled left, warped right): [B, K, H4, W4, 64]; eval
         # writes it in place, which autograd cannot follow
@@ -225,7 +301,7 @@ class SemStereo(nn.Module):
             torch.mul(att_topk[..., None], warped_rc, out=volume[..., c:])
         volume = self.concat_stem(volume)
         volume = self.concat_feature_att_4(volume, fl[1])
-        cost = self.hourglass(volume)
+        cost = self._call("hourglass", self.hourglass, volume)
         cost = self.classif(cost)[..., 0]
         pred = regression_topk(cost, samples, self.refine_topk)
         pred_up = self.ssr_upsample(pred[..., None], spx_pred, pred_label)

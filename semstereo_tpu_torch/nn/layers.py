@@ -16,17 +16,28 @@ kernel; every other conv and deconv stays on ``F.conv*``.
 * Train: BatchNorm is flax's (``semstereo_tpu/nn/layers.py::batch_norm``):
   batch statistics in fp32 over every axis but the last, output in the
   input's dtype, and the running statistics moved 0.1 of the way to the
-  batch mean and the *biased* batch variance.  The volume convs run in the
-  differentiable ``ops.conv3d`` (no affine), then BatchNorm, then ReLU, the
-  order of the JAX package's ``BasicConv``/``ConvBn`` in train.
+  batch mean and the *biased* batch variance.  Under a process group of
+  more than one process the batch is the global one: the per-channel sum,
+  sum of squared deviations and count are all-reduced (differentiably), as
+  GSPMD gives the JAX package.  A forward that ``torch.utils.checkpoint``
+  recomputes for the backward (``recomputing()``) leaves the running
+  statistics alone, as flax's ``nn.remat`` moves them once.  The volume
+  convs run in the differentiable ``ops.conv3d`` (no affine), then
+  BatchNorm, then ReLU, the order of the JAX package's
+  ``BasicConv``/``ConvBn`` in train.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import weakref
 
 import torch
+import torch.distributed.nn.functional as dist_fn
 import torch.nn as nn
+
+from semstereo_tpu_torch.parallel import process_count
 
 from semstereo_tpu_torch.ops.conv3d import conv3d, conv3d_bn_act
 from semstereo_tpu_torch.ops.resize import resize_bilinear
@@ -48,6 +59,21 @@ def derived(module: nn.Module, dtype: torch.dtype, sources, make):
 
 # Weight of the batch statistics in the running average (flax momentum 0.9).
 BN_MOMENTUM = 0.1
+
+# Set on the thread that recomputes a checkpointed forward in the backward.
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The forward run inside is a recomputation: BatchNorm normalises as
+    before but does not move its running statistics again."""
+    depth = getattr(_recompute, "depth", 0)
+    _recompute.depth = depth + 1
+    try:
+        yield
+    finally:
+        _recompute.depth = depth
 
 
 class BatchNorm(nn.Module):
@@ -77,19 +103,38 @@ class BatchNorm(nn.Module):
         return torch.addcmul(shift, x, scale)
 
     def _train(self, x):
-        # One reduction serves both uses: native_batch_norm normalises by the
-        # biased batch statistics and returns the mean and 1/sqrt(var + eps)
-        # it used, in fp32 for a bf16 input given fp32 weights.  It is not
-        # given the running buffers, which it would move by the unbiased
-        # variance.
-        y, mean, invstd = torch.native_batch_norm(
-            x.reshape(-1, x.shape[-1]), self.weight.float(), self.bias.float(), None, None,
-            True, 0.0, self.eps)
-        with torch.no_grad():
-            var = invstd.pow(-2) - self.eps
-            self.running_mean.mul_(1 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
-            self.running_var.mul_(1 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
-        return y.reshape(x.shape)
+        if process_count() > 1:
+            y, mean, var = self._train_global(x)
+        else:
+            # One reduction serves both uses: native_batch_norm normalises by
+            # the biased batch statistics and returns the mean and
+            # 1/sqrt(var + eps) it used, in fp32 for a bf16 input given fp32
+            # weights.  It is not given the running buffers, which it would
+            # move by the unbiased variance.
+            y, mean, invstd = torch.native_batch_norm(
+                x.reshape(-1, x.shape[-1]), self.weight.float(), self.bias.float(), None,
+                None, True, 0.0, self.eps)
+            y = y.reshape(x.shape)
+            var = invstd.detach().pow(-2) - self.eps
+        if not getattr(_recompute, "depth", 0):
+            with torch.no_grad():
+                self.running_mean.mul_(1 - BN_MOMENTUM).add_(mean.detach(), alpha=BN_MOMENTUM)
+                self.running_var.mul_(1 - BN_MOMENTUM).add_(var.detach(), alpha=BN_MOMENTUM)
+        return y
+
+    def _train_global(self, x):
+        """(y, mean, biased variance) over the rows of every process: two
+        differentiable all-reduces, of the per-channel sum with the count,
+        then of the squared deviations from the global mean."""
+        xf = x.reshape(-1, x.shape[-1]).float()
+        count = torch.full((1,), float(xf.shape[0]), dtype=xf.dtype, device=xf.device)
+        sums = dist_fn.all_reduce(torch.cat([xf.sum(0), count]))
+        n = sums[-1].detach()
+        mean = sums[:-1] / n
+        var = dist_fn.all_reduce((xf - mean).square().sum(0)) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean) * scale + self.bias.float()
+        return y.to(x.dtype).reshape(x.shape), mean, var
 
 
 def conv_cl(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,8 @@ written file never counts as a checkpoint.  It holds ``epoch``, ``model``
 (Adam's moments and step counts), every tensor on the CPU, so a checkpoint
 written on the card loads on the CPU.  Loading uses ``weights_only=True``:
 the file holds tensors, numbers, strings and containers, no pickled object.
+Under data parallelism every process holds the same state: process 0 writes
+the file, and every process loads it to its own device.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from semstereo_tpu_torch.parallel import process_index
 from semstereo_tpu_torch.train.state import TrainState, merge_partial_params
 
 _FILE = re.compile(r"^checkpoint_(\d{6})\.pt$")
@@ -39,11 +42,14 @@ def _to_cpu(tree):
 
 
 def save_checkpoint(logdir: str, state: TrainState, epoch: int) -> str:
-    """Writes the checkpoint of ``epoch``; returns its path."""
+    """Writes the checkpoint of ``epoch`` (process 0 only); returns its
+    path."""
+    path = checkpoint_path(logdir, epoch)
+    if process_index() != 0:
+        return path
     os.makedirs(logdir, exist_ok=True)
     payload = {"epoch": int(epoch), "model": _to_cpu(state.model.state_dict()),
                "optimizer": _to_cpu(state.optimizer.state_dict())}
-    path = checkpoint_path(logdir, epoch)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)

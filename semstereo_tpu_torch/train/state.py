@@ -9,6 +9,7 @@ import torch
 
 from semstereo_tpu_torch.config import TrainConfig, lr_for_epoch
 from semstereo_tpu_torch.models import SemStereo, build_model
+from semstereo_tpu_torch.utils.timm_convert import load_and_merge
 
 
 @dataclasses.dataclass
@@ -28,8 +29,12 @@ def build_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
 def init_state(cfg: TrainConfig, device="cuda") -> TrainState:
     """A fresh state: the model of ``cfg.model`` on ``device`` (the card
     unless the caller asks for the CPU) in train mode, with weights drawn
-    from ``cfg.seed``, and its optimizer."""
+    from ``cfg.seed`` and, when ``cfg.model.pretrained_backbone`` names a
+    timm checkpoint, its backbone loaded from it; and its optimizer."""
     model = build_model(cfg.model, device=device, seed=cfg.seed).train()
+    if cfg.model.pretrained_backbone:
+        n = load_and_merge(cfg.model.pretrained_backbone, model)
+        print(f"loaded pretrained backbone: {n} leaves from {cfg.model.pretrained_backbone}")
     return TrainState(model=model, optimizer=build_optimizer(cfg, model.parameters()))
 
 

@@ -6,6 +6,12 @@ fp32 and are cast to the compute dtype differentiably for the forward
 (``torch.func.functional_call``), so gradients come back in fp32; the BN
 running statistics are not cast, so BatchNorm computes and keeps them in
 fp32.  The outputs are cast to fp32 before the losses.
+
+Under data parallelism (``parallel.py``) each process runs the step on its
+rows of the global batch: its losses and metrics are its shares of the
+global-batch values, the gradients are summed over the processes in one
+all-reduce before the clip and the update, and the scalars the steps
+return are the global values.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from torch.func import functional_call
 
 from semstereo_tpu_torch import losses, metrics
 from semstereo_tpu_torch.config import TrainConfig
+from semstereo_tpu_torch.parallel import all_reduce_grads, all_reduce_scalars
 from semstereo_tpu_torch.train.state import TrainState
 
 
@@ -133,7 +140,8 @@ def _clip_by_global_norm(params, max_norm: float):
 def make_train_step(cfg: TrainConfig):
     """Returns train_step(state, batch) -> dict of scalar tensors (the loss
     terms, EPE, D1, Thres1-3): one forward and backward per microbatch,
-    then one Adam update of the fp32 master parameters."""
+    the gradients summed over the data-parallel processes, then one Adam
+    update of the fp32 master parameters."""
     grads_fn = make_grads_fn(cfg)
 
     def train_step(state: TrainState, batch):
@@ -142,10 +150,12 @@ def make_train_step(cfg: TrainConfig):
         batch = {k: v.to(device) for k, v in batch.items()}
         state.optimizer.zero_grad(set_to_none=True)
         aux, out, mask = grads_fn(model, batch)
+        all_reduce_grads(model.parameters())
         if cfg.optim.grad_clip > 0:
             _clip_by_global_norm(model.parameters(), cfg.optim.grad_clip)
         state.optimizer.step()
-        return dict(aux, **_disp_metrics(out["disp"][0], _display_gt(batch["disparity"]), mask))
+        return all_reduce_scalars(
+            dict(aux, **_disp_metrics(out["disp"][0], _display_gt(batch["disparity"]), mask)))
 
     return train_step
 
@@ -182,6 +192,6 @@ def make_eval_step(cfg: TrainConfig):
             scalars["label_est"] = torch.argmax(out["label_l"], dim=-1)
         if "disp" in out and has_gt:
             scalars["loss"] = scalars["disp_loss"] + scalars.get("label_loss", 0.0)
-        return scalars
+        return all_reduce_scalars(scalars)
 
     return eval_step

@@ -1,14 +1,34 @@
 """Trainer: epoch loop, learning-rate schedule, eval with meters,
 checkpoints, TensorBoard logs (counterpart of
-``semstereo_tpu/train/trainer.py``), in one process on one device.
+``semstereo_tpu/train/trainer.py``), in one process or, data-parallel, in
+one process per shard of the batch (``parallel.py``).
 
 The loaders yield numpy batches; the keys a step reads go to the device
 (from pinned memory, without blocking, on the card) and the host metadata
-(``left_filename``, ``top_pad``, ``right_pad``) stays on the host.  The
-multi-process parts of the JAX trainer (loader shards per process, the
-eval meters' all-reduce, alignment-only eval steps) belong to data
-parallelism, which this trainer does not do: it refuses to run under more
-than one process.
+(``left_filename``, ``top_pad``, ``right_pad``) stays on the host.
+
+Data parallelism: ``batch_size`` and ``test_batch_size`` are global, as
+the reference's ``nn.DataParallel`` takes them (the JAX package's are per
+host): each of the N processes loads ``batch_size / N`` rows of the shard
+``idx[rank::N]`` of the epoch's permutation cut to whole global batches,
+which with the loader's seeding makes step s of N processes see the samples
+of step s of one, and every process take ``len(train list) // batch_size``
+steps.  Every process starts from the
+same weights (checked by a broadcast), takes the same steps (global losses,
+summed gradients) and so holds the same state; process 0 writes the
+checkpoints, after which all wait at a barrier.  The eval list is sharded
+the same way; a process whose shard runs out first runs alignment-only
+steps (every row invalid) so that the collectives stay in step.
+
+Eval metering differs from JAX's.  Each eval step returns the global
+batch's scalars on every process.  JAX meters them on every host except on
+its alignment-only steps and then sums the meters over the hosts
+(``reduce_eval_meters``), so the steps before a host ran out weigh more
+than the last one.  The port meters every step's global scalars on every
+process, so each holds the one-process mean and no meter is reduced.  The
+confusion matrix over the list is the sum of each process's matrix over its
+rows, summed once after the last step; with ``eval_seg_per_batch`` each
+step's matrix is summed over the processes before it is metered.
 """
 
 from __future__ import annotations
@@ -23,7 +43,16 @@ import torch
 
 from semstereo_tpu_torch.config import TrainConfig
 from semstereo_tpu_torch.data import DataLoader, __datasets__
+from semstereo_tpu_torch.data.loader import collate
 from semstereo_tpu_torch.metrics import SegmentationMeter
+from semstereo_tpu_torch.parallel import (
+    all_reduce_sum_tree,
+    barrier,
+    broadcast_check,
+    check_parallel,
+    process_count,
+    process_index,
+)
 from semstereo_tpu_torch.train import checkpoint as ckpt
 from semstereo_tpu_torch.train.state import TrainState, init_state, set_learning_rate
 from semstereo_tpu_torch.train.steps import make_eval_step, make_train_step
@@ -54,16 +83,17 @@ def _seg_scalars(cm, num_classes: int) -> dict:
     }
 
 
-def _pad_eval_batch(batch, bs, maxdisp, ignore_index):
+def _pad_eval_batch(batch, bs, maxdisp, ignore_index, invalidate_all=False):
     """Pad a ragged eval batch to ``bs`` rows, so every eval step sees one
     shape.  Padded rows repeat the last real sample's images and carry
     all-invalid ground truth (disparity = maxdisp, outside both valid
     ranges; label = ignore_index), so the masked metrics and the confusion
-    matrix give them no weight.  Returns (padded batch, number of real
-    rows)."""
+    matrix give them no weight.  With ``invalidate_all`` every row is
+    invalid (an alignment-only batch for a process whose eval shard ran
+    out first).  Returns (padded batch, number of real rows)."""
     b0 = next(v.shape[0] for v in batch.values() if not isinstance(v, list))
-    real = b0
-    if b0 == bs:
+    real = 0 if invalidate_all else b0
+    if b0 == bs and real == b0:
         return batch, real
     pad = bs - b0
     out = {}
@@ -103,24 +133,26 @@ def _scalar_floats(scalars: dict) -> dict:
     return dict(zip(keys, vals))
 
 
-def _process_count() -> int:
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
-
-
 class Trainer:
     """``history`` keeps one record per epoch: its train wall time
     (``train_s``, loader waits included), each step's time (``step_s``,
-    from the batch in hand to its scalars on the host) and the eval
-    epoch's wall time (``eval_s``)."""
+    from the batch in hand to its scalars on the host), and the eval
+    epoch's wall time (``eval_s``) and results (``eval``)."""
 
     def __init__(self, cfg: TrainConfig, train_dataset=None, eval_dataset=None, writer=None,
                  device="cuda"):
-        n_proc = _process_count()
-        if n_proc != 1:
-            raise RuntimeError(f"Trainer runs in one process; {n_proc} were started "
-                               "(data parallelism is not ported yet)")
+        world = process_count()
+        launched = int(os.environ.get("WORLD_SIZE", "1"))
+        if world == 1 and launched > 1:
+            raise RuntimeError(
+                f"WORLD_SIZE={launched} but this process is in a group of 1: join the group "
+                "first (parallel.init_process_group, as cli.train does under torchrun)")
+        check_parallel(cfg.parallel, world)
+        for name in ("batch_size", "test_batch_size"):
+            if getattr(cfg.data, name) % world:
+                raise ValueError(f"{name}={getattr(cfg.data, name)} is the global batch; it "
+                                 f"does not split over {world} processes")
+        self.rank, self.world = process_index(), world
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to run on the CPU")
@@ -140,13 +172,15 @@ class Trainer:
         if eval_dataset is None and cfg.data.testlist and os.path.exists(cfg.data.testlist):
             eval_dataset = build_dataset(cfg.data.testlist, False)
 
+        shard = (self.rank, world)
         self.train_loader = DataLoader(
-            train_dataset, cfg.data.batch_size, shuffle=True, num_workers=cfg.data.num_workers,
-            drop_last=True, seed=cfg.seed, prefetch=cfg.data.prefetch,
+            train_dataset, cfg.data.batch_size // world, shuffle=True,
+            num_workers=cfg.data.num_workers, drop_last=True, seed=cfg.seed, shard=shard,
+            prefetch=cfg.data.prefetch,
         ) if train_dataset is not None else None
         self.eval_loader = DataLoader(
-            eval_dataset, cfg.data.test_batch_size, shuffle=False,
-            num_workers=cfg.data.num_workers, drop_last=False, seed=cfg.seed,
+            eval_dataset, cfg.data.test_batch_size // world, shuffle=False,
+            num_workers=cfg.data.num_workers, drop_last=False, seed=cfg.seed, shard=shard,
             prefetch=cfg.data.prefetch,
         ) if eval_dataset is not None else None
 
@@ -160,7 +194,8 @@ class Trainer:
     def initialize(self) -> TrainState:
         """A fresh state from ``cfg.seed``; then a resume from ``cfg.logdir``
         when ``cfg.resume`` is set and it holds a checkpoint, else a partial
-        load from ``cfg.loadckpt`` when one is named."""
+        load from ``cfg.loadckpt`` when one is named.  Every process must
+        then hold process 0's weights and statistics."""
         cfg = self.cfg
         self.state = init_state(cfg, device=self.device)
         if cfg.resume and ckpt.latest_epoch(cfg.logdir) is not None:
@@ -169,6 +204,7 @@ class Trainer:
         elif cfg.loadckpt:
             self.state, n = ckpt.restore_partial(cfg.loadckpt, self.state)
             print(f"partially loaded {n} tensors from {cfg.loadckpt}")
+        broadcast_check(self.state.model.state_dict().values(), "initial weights")
         return self.state
 
     # -- loops --------------------------------------------------------------
@@ -206,10 +242,11 @@ class Trainer:
             record["train_s"] = time.perf_counter() - t_epoch
             if (epoch + 1) % cfg.save_freq == 0:
                 ckpt.save_checkpoint(cfg.logdir, self.state, epoch)
+                barrier()
             self.state.epoch = epoch + 1
             if self.eval_loader is not None:
                 t_eval = time.perf_counter()
-                self.evaluate(epoch)
+                record["eval"] = self.evaluate(epoch)
                 record["eval_s"] = time.perf_counter() - t_eval
             self.history.append(record)
         return self.state
@@ -220,33 +257,47 @@ class Trainer:
         confusion matrix over the list or, with ``cfg.eval_seg_per_batch``,
         as NaN-skipping means of per-batch values.  With ``save_dir``, each
         sample's disparity (and, without ground-truth labels, its label map)
-        is written there as a PNG."""
+        is written there as a PNG (each process writes its shard's).  Under
+        data parallelism every process runs it and gets the results (see
+        the module docstring)."""
         cfg = self.cfg
         meters = AverageMeterDict()
         seg_meter = SegmentationMeter(cfg.model.num_classes - 1)
         per_batch = cfg.eval_seg_per_batch
         seg_batch_meter = AverageMeterDictPerKey()
         bs = self.eval_loader.batch_size
-        for it, raw in enumerate(self.eval_loader):
-            batch, real = _pad_eval_batch(raw, bs, cfg.model.maxdisp, cfg.loss.ignore_index)
+        loader_it = iter(self.eval_loader)
+        last_raw = None
+        for it in range(self._n_eval_steps()):
+            raw = next(loader_it, None)
+            if raw is None:  # this process's shard ran out: an alignment-only step
+                template = last_raw if last_raw is not None else self._template_batch()
+                batch, real = _pad_eval_batch(template, bs, cfg.model.maxdisp,
+                                              cfg.loss.ignore_index, invalidate_all=True)
+            else:
+                last_raw = raw
+                batch, real = _pad_eval_batch(raw, bs, cfg.model.maxdisp, cfg.loss.ignore_index)
             scalars = self.eval_step(self.state, _device_batch(batch, _EVAL_KEYS, self.device))
             cm = scalars.pop("confusion", None)
             disp_est = scalars.pop("disp_est", None)
             label_est = scalars.pop("label_est", None)
             if disp_est is not None:
                 disp_est = disp_est.cpu().numpy()
-            if save_dir and disp_est is not None:
+            if save_dir and real and disp_est is not None:
                 self._save_outputs(save_dir, batch, disp_est[:real],
                                    None if label_est is None else label_est.cpu().numpy()[:real])
             if cm is not None:
                 cm = cm.cpu().numpy()
                 if per_batch:
+                    (cm,) = all_reduce_sum_tree((cm,))
                     seg_batch_meter.update(_seg_scalars(cm, cfg.model.num_classes - 1))
                 else:
                     seg_meter.add_confusion(cm)
             if self.writer and it % cfg.summary_freq == 0 and disp_est is not None:
                 self._log_images(epoch, batch, disp_est)
             meters.update(_scalar_floats(scalars) if scalars else {})
+        if not per_batch:
+            (seg_meter.cm,) = all_reduce_sum_tree((seg_meter.cm,))
         results = meters.mean()
         if per_batch:
             results.update(seg_batch_meter.mean())
@@ -268,6 +319,18 @@ class Trainer:
         print("avg_test_scalars", results)
         return results
 
+    def _n_eval_steps(self) -> int:
+        """The eval steps every process runs: those of the longest shard,
+        shard 0 (the loader deals the list round-robin, ``idx[rank::N]``)."""
+        longest = -(-len(self.eval_loader.dataset) // self.world)
+        return -(-longest // self.eval_loader.batch_size)
+
+    def _template_batch(self) -> dict:
+        """A one-sample batch for the alignment-only steps of a process whose
+        eval shard is empty (its contents are marked invalid before use)."""
+        ds = self.eval_loader.dataset
+        return collate([ds.get(0, np.random.default_rng(0)) if hasattr(ds, "get") else ds[0]])
+
     def _log_images(self, epoch: int, batch: dict, disp_est: np.ndarray):
         """TensorBoard image panel: input, estimated and ground-truth
         disparity, KITTI error map."""
@@ -282,8 +345,9 @@ class Trainer:
 
     def _save_outputs(self, save_dir, batch, disp_est, label_est=None):
         """Submission-style dump: one 256 x uint16 disparity PNG (the KITTI
-        encoding) per input, named by the sample's ``left_filename`` (else a
-        running index), plus a uint8 label PNG when the labels were
+        encoding) per input, named by the sample's ``left_filename`` (else
+        its index in the eval list, ``rank + N * k`` for the k-th row of a
+        process's shard), plus a uint8 label PNG when the labels were
         estimated.  The maps are written at the network's input size, not
         cropped by ``top_pad``/``right_pad``, as the JAX package writes
         them."""
@@ -295,7 +359,7 @@ class Trainer:
             if names is not None:
                 stem = os.path.splitext(os.path.basename(names[i]))[0]
             else:
-                stem = f"{self._dump_index:06d}"
+                stem = f"{self.rank + self.world * self._dump_index:06d}"
                 self._dump_index += 1
             d = np.clip(disp_est[i] * 256.0, 0, 65535).astype(np.uint16)
             Image.fromarray(d).save(os.path.join(save_dir, f"{stem}_disp.png"))

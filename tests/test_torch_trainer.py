@@ -234,8 +234,10 @@ def test_trainer_without_a_train_list_says_so(tmp_path):
 
 
 def test_trainer_refuses_more_than_one_process(monkeypatch):
+    """Started as one of two processes (``WORLD_SIZE=2``) without having
+    joined their group, the Trainer says how to join it."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(RuntimeError, match="one process"):
+    with pytest.raises(RuntimeError, match="WORLD_SIZE=2 but this process is in a group of 1"):
         Trainer(config.TrainConfig(model=config.ModelConfig(**TINY)), device="cpu")
 
 
@@ -247,10 +249,26 @@ def test_trainer_runs_on_the_card_unless_asked_for_cpu():
 
 
 @pytest.mark.parametrize("flag", ["--data-parallel=2", "--disp-parallel=2",
-                                  "--space-parallel=2", "--remat", "--pretrained-backbone=x"])
+                                  "--space-parallel=2"])
 def test_train_cli_refuses_flags_of_later_slices(flag):
+    """Disparity and spatial parallelism are not ported; two data-parallel
+    processes need a launch of two."""
     with pytest.raises(SystemExit):
         cli_train.parse_config([flag])
+
+
+@pytest.mark.parametrize("flags,field,value", [
+    (["--remat"], "model.remat", True), (["--remat", "full"], "model.remat", True),
+    (["--remat", "featup,concat"], "model.remat", "featup,concat"),
+    (["--pretrained-backbone=x"], "model.pretrained_backbone", "x"),
+    (["--data-parallel", "-1"], "parallel.data", -1)])
+def test_train_cli_parses_the_training_modes(flags, field, value):
+    """``--remat`` (a bare flag is "full", as the JAX CLI has it),
+    ``--pretrained-backbone`` and ``--data-parallel`` land in the config."""
+    cfg, _ = cli_train.parse_config(flags)
+    part, name = field.split(".")
+    assert getattr(getattr(cfg, part), name) == value
+    assert cli_train.parse_config([])[0].model.remat is False
 
 
 def test_clis_run_the_two_stage_recipe(tmp_path, capsys):
