@@ -95,6 +95,31 @@
    step and eval batch must launch ``TRAIN_LAUNCHES`` and
    ``EVAL_LAUNCHES``.  The processes are this script run as
    ``chip_smoke.py --worker dp-step|dp-cli ...``.
+12. disp parallel (after data parallel): two processes on the one card,
+   gloo on CUDA tensors, splitting the cost volumes' planes (``disp = 2``,
+   ``data = 1``), in one pair of processes (``chip_smoke.py --worker disp
+   ...``): (a) the fp32 256x256 agreement step with both processes on the
+   global batch of 2, against the one-process step from the same weights
+   (``TRAIN_BOUNDS``), the two processes' gradients and updated
+   parameters bitwise equal, ``TRAIN_LAUNCHES`` per process with K2's and
+   K4's launch on 8 of the 16 planes each; (b) the flagship eval (US3D stage 2,
+   1024x1024, bf16, B = 1, the eval path's weights): the gathered
+   ``classif_att_`` output against the one-process run within
+   ``BF16_REL``, and the gathered stage-2 ``cost`` within ``BF16_REL`` on
+   the pixels whose top-k planes both runs chose alike (at least
+   ``DISP_SAME_TOPK`` of them), ``EVAL_LAUNCHES``
+   per request per process, ms per pair per process (two processes share
+   the card and gloo stages through the host, so this is no speed-up);
+   then one fp32 256x256 request with every /4 plane kept, its disparity
+   within ``FUSE_FP32_BOUNDS`` of one process's; (c) ``cli.train
+   --disp-parallel 2`` in the group the worker joined, for the trainer
+   phase's stage-2 epoch (bf16, from its stage-1 checkpoint): both
+   processes loading one process's rows, its first step's loss within
+   ``DISP_CLI_LOSS_REL`` of that one-process epoch's,
+   both processes' eval results within ``DISP_CLI_EVAL_REL`` of one
+   process's eval of the disp run's checkpoint (``Trainer.evaluate`` at
+   the run's compute dtype), every step and eval batch launching
+   ``TRAIN_LAUNCHES`` and ``EVAL_LAUNCHES`` per process.
 
 Prints one JSON line of per-kernel numbers, then, last, the ``ok`` line.
 Exits non-zero (and prints no result) without a CUDA device or outside the
@@ -194,6 +219,27 @@ FUSE_MODULES = ("feature_up", "chal_1", "chal_2", "concat_feature")
 FUSE_FP32_BOUNDS = dict(median=1e-3, max=0.1)
 # The data-parallel phase's processes: seconds each may take.
 DP_TIMEOUT = 600
+# The disp-parallel phase: processes per disp group, timed requests per
+# process at the flagship after one warm-up, and the least share of /4
+# pixels whose top-k choice must agree with one process's for the stage-2
+# cost comparison (1.0 measured in three runs on the H100: the split computes
+# each plane from the same operands in the same order, so only a bf16
+# near-tie flipped by another summation order in a slab's BatchNorm could
+# part them).
+DISP = 2
+DISP_TIMED = 3
+DISP_SAME_TOPK = 0.99
+# (c): the first step's loss against the one-process epoch's (relative;
+# 3.9e-4, 2.2e-4, 8.5e-4 and 1.3e-4 in four runs on the H100: the volume's
+# train BatchNorm sums its slabs in another order, bf16 rounds the rest
+# otherwise, and the training top-k flips near-ties of the untrained net),
+# and each eval result against one process's eval of the same checkpoint
+# (relative, absolute below 1: shares and losses alike; 0 measured on the
+# H100), which computes each plane as the split does.  A wrong slab, halo
+# or gather moves them by whole percent; the rows loaded are compared
+# exactly.
+DISP_CLI_LOSS_REL = 5e-3
+DISP_CLI_EVAL_REL = 1e-5
 # K4 at the main path's shape at the train batch: features [2, 128, 128, 256].
 K4_SHAPE = ((TRAIN_BATCH, 128, 128, 256), 32, 8)
 # K4 at symmetric plane counts above one launch's slab, the smallest that
@@ -356,13 +402,14 @@ def check_k2(ops, gen, scrub):
     return rows
 
 
-def seeded_model(cfg, seed: int):
+def seeded_model(cfg, seed: int, mesh=None):
     """fp32 CPU model: seeded init, non-trivial BN statistics and affine, and
-    x8 classifier output kernels (peaked disparity posteriors)."""
+    x8 classifier output kernels (peaked disparity posteriors); split over
+    ``mesh``'s disp axis when one is given."""
     from semstereo_tpu_torch.models import build_model
     from semstereo_tpu_torch.nn import BatchNorm
 
-    model = build_model(cfg, device="cpu", seed=seed)
+    model = build_model(cfg, device="cpu", seed=seed, mesh=mesh)
     gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for m in model.modules():
@@ -401,6 +448,8 @@ def reset_counts(ops):
     conv3d_input_grad_s1.launches = 0
     conv3d_weight_grad.launches = 0
     ops.gwc_volume_norm_bwd.launches = 0
+    ops.gwc_volume_norm.planes = 0
+    ops.gwc_volume_norm_bwd.planes = 0
 
 
 def run_path(ops, cpu_model, n_warm=2, n_timed=10):
@@ -1305,6 +1354,248 @@ def run_data_parallel(ops, tmp: str) -> dict:
     return res
 
 
+def planes(ops) -> dict:
+    """The planes K2 and K4 computed since the counts were reset."""
+    return {"K2": ops.gwc_volume_norm.planes, "K4": ops.gwc_volume_norm_bwd.planes}
+
+
+def volume_records(model, left, right) -> dict:
+    """One request, recording the whole /8 attention volume (the
+    classifier's output, gathered under a mesh: the trilinear resize's
+    input), the whole stage-2 cost and its top-k samples (the top-k
+    regression's inputs) and the disparity, on the CPU in fp32."""
+    from semstereo_tpu_torch.models import semstereo as sem
+
+    seen = {}
+    resize, regress = sem.resize_trilinear, sem.regression_topk
+
+    def rec_resize(x, *a):
+        seen["att"] = x.float().cpu()
+        return resize(x, *a)
+
+    def rec_regress(cost, samples, k):
+        seen["cost"], seen["samples"] = cost.float().cpu(), samples.float().cpu()
+        return regress(cost, samples, k)
+
+    sem.resize_trilinear, sem.regression_topk = rec_resize, rec_regress
+    try:
+        out = model(left, right)
+        torch.cuda.synchronize()
+    finally:
+        sem.resize_trilinear, sem.regression_topk = resize, regress
+    seen["disp"] = out["disp"][0].float().cpu()
+    return seen
+
+
+def disp_worker(out_path: str, cli_argv: list[str]) -> None:
+    """One of the two processes of the disp-parallel phase (docstring, item
+    12), gloo on CUDA tensors."""
+    import torch.distributed.nn.functional as dist_fn
+
+    from semstereo_tpu_torch import ops, parallel
+    from semstereo_tpu_torch.cli import train as cli_train
+    from semstereo_tpu_torch.config import PRESETS, ParallelConfig
+    from semstereo_tpu_torch.train import init_state, make_train_step
+
+    device = parallel.init_process_group("cuda", backend="gloo")
+    mesh = parallel.make_mesh(-1, DISP)
+    res = {}
+    # does torch.distributed.nn's all_gather differentiate under gloo on
+    # CUDA tensors? (the port's gather_planes does not use it)
+    probe = torch.ones(4, device=device, requires_grad=True)
+    try:
+        torch.stack(dist_fn.all_gather(probe)).sum().backward()
+        res["dist_nn_all_gather_backward"] = "ran"
+    except Exception as e:  # recorded, not needed: the port has its own adjoint
+        res["dist_nn_all_gather_backward"] = f"{type(e).__name__}: {str(e)[:200]}"
+    # (a)
+    cfg = agreement_cfg().replace(parallel=ParallelConfig(disp=DISP))
+    state = init_state(cfg, device=device, mesh=mesh)
+    batch = {k: v.to(device) for k, v in agreement_batch().items()}
+    train_step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    scalars = train_step(state, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    record = step_record(scalars, state.model)
+    record["params"] = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    res["train"] = dict(record=record, launches=counts(ops), planes=planes(ops), ms=ms)
+    del state
+    # (b)
+    model = seeded_model(PRESETS["us3d_stage2"], seed=0, mesh=mesh).to(device, PATH_DTYPE)
+    left, right = (t.to(device, PATH_DTYPE) for t in stereo_pair(1024, 8, seed=0))
+    rec = volume_records(model, left, right)
+    reset_counts(ops)
+    times = []
+    for _ in range(DISP_TIMED):
+        t0 = time.perf_counter()
+        model(left, right)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    res["eval"] = dict(records=rec, ms=times, launches=counts(ops), planes=planes(ops))
+    del model
+    model = seeded_model(agreement_cfg().model, seed=0, mesh=mesh).to(device)
+    left, right = stereo_pair(256, 5, seed=1)
+    res["eval_fp32"] = model(left.to(device), right.to(device))["disp"][0].cpu()
+    del model
+    # (c)
+    steps = []
+    with instrumented_steps(ops, steps):
+        trainer = cli_train.main(cli_argv)
+    loader = trainer.train_loader
+    res["cli"] = dict(steps=steps, history=trainer.history, rows=loader._indices().tolist(),
+                      shard=(loader.shard_index, loader.shard_count))
+    torch.save(res, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def logged_eval(text: str) -> dict:
+    """The first ``avg_test_scalars`` dict a trainer printed, as floats."""
+    line = next(ln for ln in text.splitlines() if ln.startswith("avg_test_scalars"))
+    return {k: float(v) for k, v in re.findall(r"'(\w+)': (?:np\.float64\()?([^,)}]+)", line)}
+
+
+def run_disp_parallel(ops, tmp: str) -> dict:
+    """The disp-parallel phase (docstring, item 12): the one-process
+    references, then the two processes.  The one-process epoch of (c) is
+    the trainer phase's stage 2 in ``tmp/stage2``."""
+    from semstereo_tpu_torch.cli import train as cli_train
+    from semstereo_tpu_torch.config import PRESETS
+    from semstereo_tpu_torch.train import checkpoint as ckpt
+    from semstereo_tpu_torch.train import init_state, make_train_step
+    from semstereo_tpu_torch.train.trainer import Trainer
+
+    script = os.path.abspath(__file__)
+    cfg = agreement_cfg()
+    state = init_state(cfg)
+    want = step_record(make_train_step(cfg)(state, {k: v.cuda() for k, v in
+                                                     agreement_batch().items()}), state.model)
+    del state
+    model = seeded_model(PRESETS["us3d_stage2"], seed=0).to("cuda", PATH_DTYPE)
+    one = volume_records(model, *(t.to("cuda", PATH_DTYPE) for t in stereo_pair(1024, 8, 0)))
+    del model
+    model = seeded_model(cfg.model, seed=0).cuda()
+    left, right = stereo_pair(256, 5, seed=1)
+    one_fp32 = model(left.cuda(), right.cuda())["disp"][0].cpu()
+    del model
+    root = f"{tmp}/data"
+    cli_argv = ["--preset", "us3d_stage2", "--datapath", root, "--trainlist",
+                f"{root}/train.txt", "--testlist", f"{root}/test.txt", "--loadckpt",
+                f"{tmp}/stage1", "--epochs", "1", "--save-freq", "1", "--compute-dtype",
+                "bfloat16", "--batch-size", str(TRAIN_BATCH), "--test-batch-size",
+                str(TRAIN_BATCH), "--num-workers", str(TRAINER_WORKERS), "--device", "cuda",
+                "--logdir", f"{tmp}/disp_run", "--disp-parallel", str(DISP)]
+    port = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+            "WORLD_SIZE": str(DISP)}
+    t0 = time.perf_counter()
+    spawn([([script, "--worker", "disp", f"{tmp}/disp{r}.pt", *cli_argv],
+            dict(port, RANK=str(r), LOCAL_RANK="0")) for r in range(DISP)], DP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(f"{tmp}/disp{r}.pt", weights_only=False) for r in range(DISP)]
+    failures = []
+    # (a)
+    tr = [r["train"] for r in ranks]
+    agreement, ok = step_agreement(tr[0]["record"], want)
+    equal = all(torch.equal(tr[0]["record"][part][n], t) for part in ("grads", "params")
+                for n, t in tr[1]["record"][part].items())
+    d8 = 2 * agreement_cfg().model.maxdisp // 8
+    res = {"wall_s": wall, "dist_nn_all_gather_backward": ranks[0]["dist_nn_all_gather_backward"],
+           "train": dict(size=256, dtype="float32", global_batch=2,
+                         ms_per_step=[t["ms"] for t in tr],
+                         launches=[t["launches"] for t in tr], planes=[t["planes"] for t in tr],
+                         ranks_equal=equal, **agreement)}
+    if not ok:
+        failures.append("the disp=2 step disagrees with the one-process step")
+    if not equal:
+        failures.append("the two processes' gradients or parameters differ")
+    if any(t["launches"] != TRAIN_LAUNCHES or t["planes"] != {"K2": d8 // DISP, "K4": d8 // DISP}
+           for t in tr):
+        failures.append("disp=2 train launches or planes")
+    # (b)
+    ev = [r["eval"] for r in ranks]
+    got = ev[0]["records"]
+    same = (got["samples"] == one["samples"]).all(dim=1)  # [B, H4, W4]
+    cost_diff = (got["cost"] - one["cost"]).abs().amax(dim=1)[same]
+    cost_rel = float(cost_diff.max() / one["cost"].abs().max()) if same.any() else float("inf")
+    att_rel = max_rel(got["att"], one["att"])
+    fp32 = (ranks[0]["eval_fp32"].double() - one_fp32.double()).abs()[:, :, 32:]
+    per_request = [{k: v // DISP_TIMED for k, v in e["launches"].items()} for e in ev]
+    res["eval"] = dict(
+        size=1024, dtype="bfloat16", note="two processes share one card; gloo stages through "
+        "the host", ms_per_pair=[e["ms"] for e in ev],
+        ms_per_pair_median=[statistics.median(e["ms"]) for e in ev], launches=per_request,
+        planes_per_request=[{k: v // DISP_TIMED for k, v in e["planes"].items()} for e in ev],
+        att_max_rel=att_rel, cost_max_rel_same_topk=cost_rel,
+        same_topk_share=float(same.double().mean()),
+        ranks_equal=all(torch.equal(ev[0]["records"][k], ev[1]["records"][k])
+                        for k in ("att", "cost", "samples", "disp")),
+        disp_median_abs_px=float((got["disp"] - one["disp"]).abs().median()),
+        fp32_256=dict(median=float(fp32.median()), max=float(fp32.max())))
+    if not (att_rel <= BF16_REL and cost_rel <= BF16_REL
+            and res["eval"]["same_topk_share"] >= DISP_SAME_TOPK and res["eval"]["ranks_equal"]):
+        failures.append("the disp=2 eval's volumes disagree with the one-process run")
+    if any(e["launches"] != {k: v * DISP_TIMED for k, v in EVAL_LAUNCHES.items()}
+           for e in ev) or any(
+            p != {"K2": 16 // DISP, "K4": 0} for p in res["eval"]["planes_per_request"]):
+        failures.append("disp=2 eval launches or planes")
+    if not (fp32.median() <= FUSE_FP32_BOUNDS["median"] and fp32.max() <= FUSE_FP32_BOUNDS["max"]):
+        failures.append("the disp=2 fp32 eval's disparity disagrees with one process's")
+    # (c)
+    disp_run = f"{tmp}/disp_run"
+    sd = [torch.load(f"{tmp}/{run}/checkpoint_000000.pt", weights_only=True)["model"]
+          for run in ("stage2", "disp_run")]
+    moved = torch.cat([(sd[1][n] - p).abs().ravel() for n, p in sd[0].items()
+                       if "running_" not in n]) / agreement_cfg().optim.lr
+    cli = [r["cli"] for r in ranks]
+    logs = []
+    for run in ("stage2", "disp_run"):
+        with open(f"{tmp}/{run}/log.log") as f:
+            logs.append(f.read())
+    first_loss = [float(re.search(r"Epoch 0/1, Iter 0/\d+, loss = (\S+),", text).group(1))
+                  for text in logs]
+    # one process's eval of the disp run's checkpoint, as the run evaluated
+    one_cfg, _ = cli_train.parse_config(cli_argv[:cli_argv.index("--disp-parallel")])
+    trainer = Trainer(one_cfg, device="cuda")
+    trainer.state = ckpt.restore_checkpoint(disp_run, init_state(one_cfg))
+    want_eval = trainer.evaluate()
+    trainer.train_loader.set_epoch(0)
+    want_rows = trainer.train_loader._indices().tolist()
+    del trainer
+    eval_rel = {k: max(abs(c["history"][-1]["eval"].get(k, np.inf) - v) / max(abs(v), 1.0)
+                    for c in cli)
+                for k, v in want_eval.items()}
+    res["cli"] = dict(
+        ms_per_step=[[ms for kind, ms, _ in c["steps"] if kind == "train"] for c in cli],
+        param_diff_over_lr_max=float(moved.max()), param_diff_over_lr_median=float(moved.median()),
+        steps=[ln for ln in logs[1].splitlines() if ln.startswith("Epoch 0/1, Iter")],
+        one_steps=[ln for ln in logs[0].splitlines() if ln.startswith("Epoch 0/1, Iter")],
+        first_loss_rel=abs(first_loss[1] - first_loss[0]) / abs(first_loss[0]),
+        eval=cli[0]["history"][-1]["eval"], one_process_eval_of_checkpoint=want_eval,
+        eval_rel_max=max(eval_rel.values()), one_epoch_eval=logged_eval(logs[0]))
+    for c in cli:
+        for kind, want_l in (("train", TRAIN_LAUNCHES), ("eval", EVAL_LAUNCHES)):
+            got_l = [l for k, _, l in c["steps"] if k == kind]
+            if not got_l or any(l != want_l for l in got_l):
+                failures.append(f"disp=2 CLI {kind} launches {got_l}")
+    if any(c["rows"] != want_rows or c["shard"] != (0, 1) for c in cli):
+        failures.append(f"disp=2 CLI rows {[(c['shard'], c['rows']) for c in cli]}, "
+                        f"one process's {want_rows}")
+    if sd[0].keys() != sd[1].keys():
+        failures.append("the disp=2 CLI checkpoint's leaves differ from one process's")
+    if not res["cli"]["first_loss_rel"] <= DISP_CLI_LOSS_REL:
+        failures.append(f"the disp=2 CLI first loss {first_loss[1]} against {first_loss[0]}")
+    if any(set(c["history"][-1]["eval"]) != set(want_eval) for c in cli) or not all(
+            np.isfinite(v) and v <= DISP_CLI_EVAL_REL for v in eval_rel.values()):
+        failures.append(f"the disp=2 CLI eval against one process's of its checkpoint: "
+                        f"{eval_rel}")
+    log("disp_parallel", json.dumps(res))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
 def fp32_without_tf32() -> None:
     """fp32 convs and matmuls in fp32, not TF32 (cuDNN's default), so that
     the fp32 comparisons see summation order only."""
@@ -1313,8 +1604,9 @@ def fp32_without_tf32() -> None:
 
 
 def worker(argv: list[str]) -> int:
-    """``--worker dp-step OUT`` or ``--worker dp-cli OUT CLI-ARGS...``: one
-    process of the data-parallel phase."""
+    """``--worker dp-step OUT``, ``--worker dp-cli OUT CLI-ARGS...`` or
+    ``--worker disp OUT CLI-ARGS...``: one process of the data- or
+    disp-parallel phase."""
     if not torch.cuda.is_available():
         log("no CUDA device")
         return 1
@@ -1322,6 +1614,8 @@ def worker(argv: list[str]) -> int:
     kind, out = argv[0], argv[1]
     if kind == "dp-step":
         dp_step_worker(out)
+    elif kind == "disp":
+        disp_worker(out, argv[2:])
     else:
         dp_cli_worker(out, argv[2:])
     return 0
@@ -1371,7 +1665,9 @@ def main() -> int:
         run_trainer(ops, tmp, write_dataset(f"{tmp}/data"))
         t = phase("trainer", t)
         run_data_parallel(ops, tmp)
-        phase("data parallel", t)
+        t = phase("data parallel", t)
+        run_disp_parallel(ops, tmp)
+        phase("disp parallel", t)
 
     kernels = []
     meta = {

@@ -10,10 +10,15 @@ runs on the card unless ``--device cpu`` is given.  Started by ``torchrun``
 (``WORLD_SIZE`` in the environment), it joins the process group first
 (NCCL on the card, gloo on the CPU) and trains data-parallel, one process
 per card, ``--batch-size`` being the global batch; process 0 writes
-``log.log``, the TensorBoard logs and the checkpoints.  ``--remat`` and
-``--pretrained-backbone`` are the model's ``remat`` and
-``pretrained_backbone``.  Disparity and spatial parallelism are not ported:
-``--disp-parallel`` and ``--space-parallel`` above 1 are refused.
+``log.log``, the TensorBoard logs and the checkpoints.  ``--disp-parallel
+N`` splits the cost volumes' planes over groups of N consecutive processes
+(world = data x disp; ``--data-parallel -1`` is world / N):
+
+    torchrun --nproc-per-node 2 -m semstereo_tpu_torch.cli.train --preset ... --disp-parallel 2
+
+``--remat`` and ``--pretrained-backbone`` are the model's ``remat`` and
+``pretrained_backbone``.  Spatial parallelism is not ported:
+``--space-parallel`` above 1 is refused.
 """
 
 from __future__ import annotations
@@ -25,8 +30,8 @@ import sys
 
 import torch.distributed as dist
 
-from semstereo_tpu_torch.config import TRAIN_PRESETS, TrainConfig
-from semstereo_tpu_torch.parallel import init_process_group, process_index
+from semstereo_tpu_torch.config import TRAIN_PRESETS, ParallelConfig, TrainConfig
+from semstereo_tpu_torch.parallel import check_parallel, init_process_group, process_index
 from semstereo_tpu_torch.train.trainer import Trainer
 from semstereo_tpu_torch.utils import TeeLogger
 
@@ -74,18 +79,20 @@ def parse_config(argv=None) -> tuple[TrainConfig, argparse.Namespace]:
     p.add_argument("--pretrained-backbone",
                    help="timm mobilevitv2_100 state_dict (.pth) loaded into the backbone")
     p.add_argument("--data-parallel", type=int, default=-1,
-                   help="data-parallel processes (-1: all that torchrun started)")
-    p.add_argument("--disp-parallel", type=int, default=1, help="not ported; must be 1")
+                   help="data-parallel groups (-1: the processes started / --disp-parallel)")
+    p.add_argument("--disp-parallel", type=int, default=1,
+                   help="processes that split the cost volumes' planes")
     p.add_argument("--space-parallel", type=int, default=1, help="not ported; must be 1")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     args = p.parse_args(argv)
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if args.disp_parallel != 1 or args.space_parallel != 1:
-        p.error("--disp-parallel and --space-parallel are not ported yet (ROADMAP.md, "
-                "section 1)")
-    if args.data_parallel not in (-1, world):
-        p.error(f"--data-parallel {args.data_parallel} needs as many processes; {world} "
-                f"started (torchrun --nproc-per-node {args.data_parallel})")
+    if args.space_parallel != 1:
+        p.error("--space-parallel is not ported yet; spatial parallelism is the next module "
+                "of ROADMAP.md, section 1")
+    try:
+        check_parallel(ParallelConfig(data=args.data_parallel, disp=args.disp_parallel), world)
+    except ValueError as e:
+        p.error(str(e))
 
     cfg = TRAIN_PRESETS[args.preset]
     cfg = cfg.replace(
@@ -100,7 +107,8 @@ def parse_config(argv=None) -> tuple[TrainConfig, argparse.Namespace]:
             maxdisp=args.maxdisp, topk=args.topk, att_window1=window(args.att_window1),
             att_window2=window(args.att_window2), pretrained_backbone=args.pretrained_backbone,
             remat=True if args.remat == "full" else args.remat)),
-        parallel=dataclasses.replace(cfg.parallel, data=args.data_parallel),
+        parallel=dataclasses.replace(cfg.parallel, data=args.data_parallel,
+                                     disp=args.disp_parallel),
         resume=args.resume,
         **overrides(logdir=args.logdir, loadckpt=args.loadckpt, seed=args.seed,
                     save_freq=args.save_freq, compute_dtype=args.compute_dtype),

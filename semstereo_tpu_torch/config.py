@@ -1,5 +1,5 @@
 """Configuration of the port: a copy of what the model, the train step,
-the data layer, the trainer and data parallelism read from
+the data layer, the trainer and data and disparity parallelism read from
 ``semstereo_tpu.config`` (the port
 keeps its own so that it imports nothing of the JAX package).
 
@@ -84,7 +84,7 @@ class OptimConfig:
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     data: int = -1  # data-parallel processes; -1: the world size
-    disp: int = 1  # disparity-plane sharding (not ported; must stay 1)
+    disp: int = 1  # processes that split the cost volumes' planes (parallel.make_mesh)
     space: int = 1  # height-tile sharding (not ported; must stay 1)
     # BatchNorm statistics over the global batch (all-reduced across the
     # data-parallel processes), as GSPMD gives the JAX package.

@@ -139,8 +139,10 @@ enum Mode { WHOLE, FIRST, MIDDLE, LAST };
 // A launch takes the planes lo .. lo + D - 1 of a volume whose gb has Dg
 // planes; gbar points at plane 0 of this slab.  The output columns of a
 // tile at x0 are x0 + i for gr (yr) and x0 + off + i for gl (yl), with off
-// the point of [lo, hi] nearest 0 (0 when the slab holds shift 0, always
-// for WHOLE), so that both windows hold what the tile's norm VJPs read.  O
+// the point of [lo, hi] nearest 0 (0 when the range holds shift 0), so
+// that both windows hold what the tile's norm VJPs read.  A range without
+// shift 0 comes as a later slab of many planes, or whole as one process's
+// part of a volume split over processes (shifts -8..-1 of 16, say).  O
 // is the output type: fp32 for FIRST and MIDDLE (acc_l, acc_r, which may be
 // the output itself, hold the sums so far for MIDDLE and LAST), else T.
 template <typename T, int G, Mode M,
@@ -155,7 +157,7 @@ gwc_volume_bwd_kernel(const T* __restrict__ left, const T* __restrict__ right,
   constexpr int RUN = NT / EPC;        // copies per plane of gb in one chunk
   extern __shared__ __align__(16) unsigned char smem[];
   const int hi = lo + D - 1;
-  const int off = M == WHOLE ? 0 : (lo > 0 ? lo : (hi < 0 ? hi : 0));
+  const int off = lo > 0 ? lo : (hi < 0 ? hi : 0);
   if (M == WHOLE) Dg = D;
   const int nwin = window_chunks(D), nring = ring_chunks(D), cols = nring * TW;
   T* ls = reinterpret_cast<T*>(smem);
@@ -356,15 +358,15 @@ extern "C" int gwc_volume_bwd_blocks_per_sm(int C, int G, int D, int dtype) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (left, right, gbar, gleft, gright alike).
-// Takes C = 8 G with G = 32 or 8 and a shift range that holds 0.  wl, wr are
+// Takes C = 8 G with G = 32 or 8 and any range of D shifts.  wl, wr are
 // fp32 [B,H,W,C] workspaces, needed in bf16 when D takes more than one slab
 // (else unread; fp32 sums in the output itself).  Returns a cudaError_t
 // (0 = launched).
 extern "C" int gwc_volume_bwd(const void* left, const void* right, const void* gbar, void* gleft,
                               void* gright, void* wl, void* wr, int B, int H, int W, int C, int G,
                               int shift_lo, int D, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || D <= 0 || !supported(C, G) || B > 65535 || shift_lo > 0 ||
-      shift_lo + D - 1 < 0 || (dtype != 0 && dtype != 1) ||
+  if (B <= 0 || H <= 0 || W <= 0 || D <= 0 || !supported(C, G) || B > 65535 ||
+      (dtype != 0 && dtype != 1) ||
       (dtype == 1 && slabs(D) > 1 && (wl == nullptr || wr == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -28,6 +28,19 @@ takes the parameters it uses as inputs and binds them with
 (the bf16 casts of the train step's ``functional_call``, not the fp32
 masters it has put back by then); BatchNorm does not move its running
 statistics in the recomputation.
+
+Disparity parallelism (``mesh``, from ``parallel.make_mesh``, with a disp
+axis above 1): the processes of a disp group hold the same rows and run
+everything outside the two cost-volume pipelines whole, alike; each holds
+one slab of the planes from the cost volume to the classifier's output
+(the JAX package's ``_constrain_disp`` sites).  Stage 1: K2 builds the
+process's slab of the /8 volume, the patch conv, channel attention,
+``hourglass_att`` and ``classif_att_`` run on it, and the classifier's
+output is gathered before the trilinear resize.  The group's first process
+chooses the top-k planes and broadcasts the choice (a near-tie rounded
+otherwise in one process would tear the slabs apart).  Stage 2: each
+process builds its slab of the top-k concat volume, runs ``concat_stem``
+to ``classif`` on it and gathers ``cost`` before the top-k regression.
 """
 
 from __future__ import annotations
@@ -52,6 +65,12 @@ from semstereo_tpu_torch.nn import (
     SSRUpsample,
 )
 from semstereo_tpu_torch.nn.layers import conv_cl, recomputing
+from semstereo_tpu_torch.parallel import (
+    broadcast_from_group,
+    check_disp_planes,
+    gather_planes,
+    volume_planes,
+)
 from semstereo_tpu_torch.ops import (
     disparity_regression,
     disparity_variance,
@@ -60,6 +79,7 @@ from semstereo_tpu_torch.ops import (
     propagate5_volume,
     regression_topk,
     resize_trilinear,
+    topk_plane_indices,
     topk_planes,
     warp_strength,
     warp_with_left,
@@ -84,14 +104,15 @@ def remat_components(spec) -> frozenset:
     return comps
 
 
-def _checkpointed(module: nn.Module, *args):
-    """``module(*args)`` under a non-reentrant checkpoint whose function
-    takes the module's parameters (as bound now) as inputs; the
+def _checkpointed(module: nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)`` under a non-reentrant checkpoint whose
+    function takes the module's parameters (as bound now) as inputs; the
     recomputation runs under ``recomputing()``."""
     names, tensors = zip(*module.named_parameters())
 
     def run(*inputs):
-        return functional_call(module, dict(zip(names, inputs[len(args):])), inputs[:len(args)])
+        return functional_call(module, dict(zip(names, inputs[len(args):])), inputs[:len(args)],
+                               kwargs)
 
     return checkpoint(run, *args, *tensors, use_reentrant=False,
                       context_fn=lambda: (contextlib.nullcontext(), recomputing()))
@@ -134,7 +155,7 @@ class SemStereo(nn.Module):
     def __init__(self, maxdisp: int = 64, num_classes: int = 6, att_weights_only: bool = False,
                  seg_if: bool = True, stereo_if: bool = True, symmetric: bool = True,
                  topk: int = 24, refine_topk: int = 2, att_window1=(4, 4, 4),
-                 att_window2=(6, 4, 4), remat=False, fuse_views=None):
+                 att_window2=(6, 4, 4), remat=False, fuse_views=None, mesh=None):
         super().__init__()
         if stereo_if and not seg_if:
             raise ValueError("stereo_if requires seg_if: SSR upsampling consumes pred_label")
@@ -155,6 +176,11 @@ class SemStereo(nn.Module):
         self.refine_topk = refine_topk
         self.remat = remat_components(remat)
         self.fuse_views = fuse_views
+        # the plane split (module docstring); not a submodule or a buffer
+        self.mesh = mesh if mesh is not None and mesh.split else None
+        if self.mesh is not None:
+            check_disp_planes(volume_planes(maxdisp, symmetric, topk, att_weights_only),
+                              mesh.disp)
 
         self.feature = MobileViTv2Backbone()
         self.feature_up = FeatUp()
@@ -189,12 +215,12 @@ class SemStereo(nn.Module):
     def _chal(self, i, x):
         return getattr(self, f"chal_{i}")(x)
 
-    def _call(self, component: str, module: nn.Module, *args):
-        """``module(*args)``, recomputed in the backward when ``component``
-        is in ``remat`` and a gradient is being recorded."""
+    def _call(self, component: str, module: nn.Module, *args, **kwargs):
+        """``module(*args, **kwargs)``, recomputed in the backward when
+        ``component`` is in ``remat`` and a gradient is being recorded."""
         if component in self.remat and self.training and torch.is_grad_enabled():
-            return _checkpointed(module, *args)
-        return module(*args)
+            return _checkpointed(module, *args, **kwargs)
+        return module(*args, **kwargs)
 
     def forward(self, left, right):
         """left, right [B, H, W, 3] -> dict (see the module docstring)."""
@@ -241,14 +267,20 @@ class SemStereo(nn.Module):
         xspx = self._call("spx", self.spx4_2, xspx, fl[0])
         spx_pred = conv_cl(self.spx2[0], xspx)
 
-        # stage 1: cosine GWC attention volume at /8
+        # stage 1: cosine GWC attention volume at /8 (this process's slab
+        # of its planes under a mesh)
+        mesh = self.mesh
         groups = CHANS2[2] // 8
+        d8 = self.maxdisp // 8 * (2 if self.symmetric else 1)
+        p8, n8 = mesh.slab(d8) if mesh is not None else (0, None)
         corr = gwc_volume_norm(fl[2].contiguous(), fr2.contiguous(), self.maxdisp // 8, groups,
-                               symmetric=self.symmetric)  # [B, D8, H8, W8, G]
+                               self.symmetric, p8, n8)  # [B, D8, H8, W8, G]
         corr = conv_cl(self.patch, corr)
         cost_att = self.corr_feature_att_8(corr, fl[2])
-        cost_att = self._call("hourglass", self.hourglass_att, cost_att)
-        cost_att = self.classif_att_(cost_att)
+        cost_att = self._call("hourglass", self.hourglass_att, cost_att, mesh=mesh)
+        cost_att = self.classif_att_(cost_att, mesh=mesh)
+        if mesh is not None:
+            cost_att = gather_planes(cost_att, mesh)
 
         d4 = self.maxdisp // 4 * (2 if self.symmetric else 1)
         h4, w4 = left.shape[1] // 4, left.shape[2] // 4
@@ -272,7 +304,11 @@ class SemStereo(nn.Module):
         att_weights = torch.sum(att_weights * strength[:, :, None], dim=1)
 
         k = min(self.topk, d4)
-        att_topk, att_raw, samples = topk_planes(att_weights, k, self.symmetric)
+        ind = topk_plane_indices(att_weights, k)
+        if mesh is not None:  # one choice of planes for the group's slabs, a byte each
+            ind = broadcast_from_group(ind.to(torch.uint8 if d4 <= 256 else torch.int32),
+                                       mesh).long()
+        att_topk, att_raw, samples = topk_planes(att_weights, k, self.symmetric, ind)
         att_prob = torch.softmax(att_raw, dim=1)
         pred_att = torch.sum(att_prob * samples, dim=1)
         if self.att_weights_only or train:
@@ -281,28 +317,35 @@ class SemStereo(nn.Module):
             out["disp"] = (pred_att_up * 4, pred_att * 4) if train else (pred_att_up * 4,)
             return out
 
-        # stage 2: top-k sampled concat volume at /4
+        # stage 2: top-k sampled concat volume at /4 (this process's slab of
+        # the k planes under a mesh)
+        samples_k, att_k = samples, att_topk
+        if mesh is not None:
+            pk, nk = mesh.slab(k)
+            samples_k, att_k = samples[:, pk:pk + nk], att_topk[:, pk:pk + nk]
         if fuse:
             cc = self.concat_feature(torch.cat([fl[1], fr1]))
             lc, rc = cc[:b], cc[b:]
         else:
             lc = self._call("concat", self.concat_feature, fl[1])
             rc = self._call("concat", self.concat_feature, fr1)
-        warped_rc, tiled_lc = warp_with_left(lc, rc, samples)
+        warped_rc, tiled_lc = warp_with_left(lc, rc, samples_k)
         # att * concat(tiled left, warped right): [B, K, H4, W4, 64]; eval
         # writes it in place, which autograd cannot follow
         if train:
-            volume = att_topk[..., None] * torch.cat([tiled_lc, warped_rc], dim=-1)
+            volume = att_k[..., None] * torch.cat([tiled_lc, warped_rc], dim=-1)
         else:
             c = lc.shape[-1]
             volume = torch.empty((*warped_rc.shape[:-1], 2 * c), dtype=lc.dtype,
                                  device=lc.device)
-            torch.mul(att_topk[..., None], tiled_lc, out=volume[..., :c])
-            torch.mul(att_topk[..., None], warped_rc, out=volume[..., c:])
-        volume = self.concat_stem(volume)
+            torch.mul(att_k[..., None], tiled_lc, out=volume[..., :c])
+            torch.mul(att_k[..., None], warped_rc, out=volume[..., c:])
+        volume = self.concat_stem(volume, mesh=mesh)
         volume = self.concat_feature_att_4(volume, fl[1])
-        cost = self._call("hourglass", self.hourglass, volume)
-        cost = self.classif(cost)[..., 0]
+        cost = self._call("hourglass", self.hourglass, volume, mesh=mesh)
+        cost = self.classif(cost, mesh=mesh)[..., 0]
+        if mesh is not None:
+            cost = gather_planes(cost, mesh)
         pred = regression_topk(cost, samples, self.refine_topk)
         pred_up = self.ssr_upsample(pred[..., None], spx_pred, pred_label)
         if train:

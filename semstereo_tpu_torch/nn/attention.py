@@ -5,6 +5,13 @@ The (D, H, W) volume is cut into (bd, bh, bw) windows with token order
 (bd, bh, bw); D, H and W are padded to window multiples, and an additive
 -1000 bias keeps padded and real cells from attending to each other.
 Windows are small (64 or 96 tokens, C=128), so two batched matmuls suffice.
+
+Given a ``mesh`` that splits the volume, x is this process's slab of the
+bottleneck's planes.  A window spans the whole bottleneck's depth (4 of 4
+planes at /8, 6 of 6 at /4), so no slab holds one: the planes are gathered
+over the disp group (``parallel.gather_planes``, whose backward sums the
+cotangent over the group), every process attends over the whole volume and
+keeps its slab.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from semstereo_tpu_torch.parallel import gather_planes
 
 NUM_HEADS = 16
 
@@ -27,7 +35,15 @@ class WindowedAttention3D(nn.Module):
         self.qkv_3d = nn.Linear(channels, 3 * channels)
         self.final1x1 = nn.Conv3d(channels, channels, 1)
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
+        keep = None
+        if mesh is not None and mesh.split:
+            p0, n = mesh.slab(x.shape[1] * mesh.disp)
+            keep = slice(p0, p0 + n)
+            x = gather_planes(x, mesh)
+        # one memory layout (the gather's) for both paths: the matmuls below
+        # round by their operands' strides in bf16
+        x = x.contiguous()
         b, d0, h0, w0, c = x.shape
         bd, bh, bw = self.window
         pad_d, pad_b, pad_r = (-d0) % bd, (-h0) % bh, (-w0) % bw
@@ -58,4 +74,7 @@ class WindowedAttention3D(nn.Module):
         out = out.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(b, d, h, w, c)
         if any_pad:
             out = out[:, :d0, :h0, :w0]
-        return F.linear(out, self.final1x1.weight[:, :, 0, 0, 0], self.final1x1.bias)
+        out = F.linear(out, self.final1x1.weight[:, :, 0, 0, 0], self.final1x1.bias)
+        # the slab after the projection: the matmul then has one process's
+        # shape, and so its rounding (a slab's rows round otherwise in bf16)
+        return out if keep is None else out[:, keep]

@@ -26,7 +26,10 @@ class SegmentHead(nn.Module):
 
 class ChannelAtt(nn.Module):
     """sigmoid channel attention from 2-D features, broadcast over D:
-    ``im_att = Sequential(BasicConv 1x1, Conv2d 1x1)``."""
+    ``im_att = Sequential(BasicConv 1x1, Conv2d 1x1)``.  On a slab of the
+    volume's planes it gates each plane of the slab alike; the gradient it
+    sends into the (replicated) features is this slab's part, and the
+    gradient all-reduce sums the parts."""
 
     def __init__(self, cv_channels: int, im_channels: int):
         super().__init__()

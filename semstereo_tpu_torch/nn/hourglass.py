@@ -3,7 +3,10 @@ the 3-D classifier (counterpart of ``semstereo_tpu/nn/hourglass.py``).
 
 Volumes are [B, D, H, W, C].  conv1-conv4 and both classifier convs are
 3x3x3 pad-1 convs and run in the Hopper kernel (``ops.conv3d_bn_act``); the
-k3 s2 p1 op1 deconvs and 1x1x1 redirs stay on ``F.conv*``.
+k3 s2 p1 op1 deconvs and 1x1x1 redirs stay on ``F.conv*``.  Given a
+``mesh`` that splits the volume, x and the output are this process's slabs
+of planes: each conv reads its neighbours' edge planes (``nn/layers.py``),
+and the attention gathers the bottleneck whole (``nn/attention.py``).
 """
 
 from __future__ import annotations
@@ -34,14 +37,14 @@ class Hourglass3D(nn.Module):
         self.redir1 = ConvBn(c, c, 1, dims=3)
         self.redir2 = ConvBn(2 * c, 2 * c, 1, dims=3)
 
-    def forward(self, x):
-        conv1 = self.conv1[0](x, relu=True)
-        conv2 = self.conv2[0](conv1, relu=True)
-        conv3 = self.conv3[0](conv2, relu=True)
-        conv4 = self.conv4[0](conv3, relu=True)
-        conv4 = self.attention_block(conv4)
-        conv5 = torch.relu(self.conv5(conv4) + self.redir2(conv2))
-        return torch.relu(self.conv6(conv5) + self.redir1(x))
+    def forward(self, x, mesh=None):
+        conv1 = self.conv1[0](x, relu=True, mesh=mesh)
+        conv2 = self.conv2[0](conv1, relu=True, mesh=mesh)
+        conv3 = self.conv3[0](conv2, relu=True, mesh=mesh)
+        conv4 = self.conv4[0](conv3, relu=True, mesh=mesh)
+        conv4 = self.attention_block(conv4, mesh=mesh)
+        conv5 = torch.relu(self.conv5(conv4, mesh=mesh) + self.redir2(conv2, mesh=mesh))
+        return torch.relu(self.conv6(conv5, mesh=mesh) + self.redir1(x, mesh=mesh))
 
 
 class Classifier3D(nn.Sequential):
@@ -55,5 +58,6 @@ class Classifier3D(nn.Sequential):
             nn.Conv3d(channels, 1, 3, 1, 1, bias=False),
         )
 
-    def forward(self, x):
-        return conv_bn_act(self[2], None, self[0](x, relu=True), relu=False)
+    def forward(self, x, mesh=None):
+        return conv_bn_act(self[2], None, self[0](x, relu=True, mesh=mesh), relu=False,
+                           mesh=mesh)

@@ -25,6 +25,17 @@ kernel; every other conv and deconv stays on ``F.conv*``.
   convs run in the differentiable ``ops.conv3d`` (no affine), then
   BatchNorm, then ReLU, the order of the JAX package's
   ``BasicConv``/``ConvBn`` in train.
+* Plane slabs: given a ``mesh`` whose disp axis splits the volume, a 3-D
+  conv takes its input as this process's slab of planes and returns its
+  slab of the output planes.  A conv whose kernel spans depth reads the
+  neighbouring slabs' edge planes (``parallel.halo_pad``, zeros at the
+  volume's ends) and keeps the output planes on the global grid: the
+  3x3x3 pad-1 conv runs the kernel on [below, slab, above] at stride 1 and
+  on [0, below, slab] at stride 2, the k3 s2 p1 op1 deconv on [slab,
+  above], and each drops the output planes outside the slab (2 at stride
+  1, 1 at stride 2, 2 for the deconv).  A conv of kernel depth 1 takes the
+  slab as it is.  BatchNorm's statistics are global over the processes, so
+  a slab's counts add up to the volume's.
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ import torch
 import torch.distributed.nn.functional as dist_fn
 import torch.nn as nn
 
-from semstereo_tpu_torch.parallel import process_count
+from semstereo_tpu_torch.parallel import halo_pad, process_count
 
 from semstereo_tpu_torch.ops.conv3d import conv3d, conv3d_bn_act
 from semstereo_tpu_torch.ops.resize import resize_bilinear
@@ -166,10 +177,36 @@ def kernel_operands(conv: nn.Conv3d, bn: BatchNorm | None):
     return w, ones, torch.zeros_like(ones)
 
 
+def _is_k3_s2_deconv(conv: nn.Module) -> bool:
+    """The hourglass's k3 s2 p1 op1 transposed volume conv."""
+    return (type(conv) is nn.ConvTranspose3d and conv.kernel_size == (3, 3, 3)
+            and conv.stride == (2, 2, 2) and conv.padding == (1, 1, 1)
+            and conv.output_padding == (1, 1, 1) and conv.dilation == (1, 1, 1)
+            and conv.groups == 1)
+
+
+def _depth_halo(conv: nn.Module, x: torch.Tensor, mesh) -> tuple[torch.Tensor, slice]:
+    """(the input the conv takes for the slab ``x``, the output planes to
+    keep); see the module docstring."""
+    n = x.shape[1]
+    if _is_k3_volume_conv(conv) and conv.stride[0] == 1:
+        return halo_pad(x, mesh, below=True, above=True), slice(1, n + 1)
+    if _is_k3_volume_conv(conv):
+        xp = halo_pad(x, mesh, below=True, above=False)
+        return torch.cat([torch.zeros_like(xp[:, :1]), xp], dim=1), slice(1, n // 2 + 1)
+    if _is_k3_s2_deconv(conv):
+        return halo_pad(x, mesh, below=False, above=True), slice(0, 2 * n)
+    raise ValueError(f"no plane-slab rule for {conv}")
+
+
 def conv_bn_act(conv: nn.Module, bn: BatchNorm | None, x: torch.Tensor,
-                relu: bool) -> torch.Tensor:
+                relu: bool, mesh=None) -> torch.Tensor:
     """[relu](bn(conv(x))); a 3x3x3 pad-1 volume conv goes to the kernel,
-    with the BN folded in eval."""
+    with the BN folded in eval.  With a ``mesh`` that splits the volume,
+    x and the result are this process's plane slabs (module docstring)."""
+    keep = None
+    if mesh is not None and mesh.split and conv.kernel_size[0] > 1:
+        x, keep = _depth_halo(conv, x, mesh)
     if not _is_k3_volume_conv(conv):
         y = conv_cl(conv, x)
     elif conv.training:
@@ -179,7 +216,10 @@ def conv_bn_act(conv: nn.Module, bn: BatchNorm | None, x: torch.Tensor,
             conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)
         w, scale, shift = derived(conv, conv.weight.dtype, sources,
                                   lambda: kernel_operands(conv, bn))
-        return conv3d_bn_act(x.contiguous(), w, scale, shift, conv.stride[0], relu)
+        y = conv3d_bn_act(x.contiguous(), w, scale, shift, conv.stride[0], relu)
+        return y if keep is None else y[:, keep]
+    if keep is not None:
+        y = y[:, keep]
     if bn is not None:
         y = bn(y)
     return torch.relu(y) if relu else y
@@ -203,8 +243,8 @@ class BasicConv(nn.Module):
         self.conv = make_conv(cin, cout, kernel_size, stride, padding, dims, deconv)
         self.bn = BatchNorm(cout)
 
-    def forward(self, x):
-        return conv_bn_act(self.conv, self.bn, x, relu=True)
+    def forward(self, x, mesh=None):
+        return conv_bn_act(self.conv, self.bn, x, relu=True, mesh=mesh)
 
 
 class ConvBn(nn.Sequential):
@@ -219,8 +259,8 @@ class ConvBn(nn.Sequential):
             BatchNorm(cout),
         )
 
-    def forward(self, x, relu: bool = False):
-        return conv_bn_act(self[0], self[1], x, relu)
+    def forward(self, x, relu: bool = False, mesh=None):
+        return conv_bn_act(self[0], self[1], x, relu, mesh)
 
 
 class Conv2x(nn.Module):

@@ -17,6 +17,7 @@ from semstereo_tpu_torch.ops.regression import (
     disparity_values,
     disparity_variance,
     regression_topk,
+    topk_plane_indices,
     topk_planes,
 )
 from semstereo_tpu_torch.ops.resize import resize_bilinear, resize_trilinear
@@ -31,7 +32,8 @@ __all__ = [
     "conv3d_bn_act", "conv3d_bn_act_plain", "conv3d_plain", "gwc_volume_norm",
     "gwc_volume_norm_bwd", "gwc_volume_norm_bwd_plain", "gwc_volume_norm_plain",
     "normalize_groups", "propagate5", "propagate5_volume", "disparity_regression",
-    "disparity_values", "disparity_variance", "regression_topk", "topk_planes",
+    "disparity_values", "disparity_variance", "regression_topk", "topk_plane_indices",
+    "topk_planes",
     "resize_bilinear", "resize_trilinear", "disparity_warp", "lrsc_label_warp",
     "warp_strength", "warp_with_left",
 ]

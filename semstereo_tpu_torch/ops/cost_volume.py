@@ -4,7 +4,9 @@ Counterpart of ``semstereo_tpu/ops/cost_volume.py``.  Layouts are
 channels-last: features [B, H, W, C], volume [B, D, H, W, G].  Plane d holds
 shift ``d - max_shift`` (symmetric) or ``d`` (positive):
 ``vol[b,d,h,x,g] = mean_c ln[b,h,x,g,c] * rn[b,h,x-s,g,c]`` for in-range
-``x - s``, else 0.
+``x - s``, else 0.  Every function takes a slab of the planes, the
+``planes`` planes from ``plane0`` on (the whole range by default): the
+part of the volume that one process of a disp group holds.
 
 ``gwc_volume_norm`` is differentiable.  On CUDA tensors its forward
 launches the Hopper kernel ``csrc/gwc_volume.cu`` (K2, which replaces the
@@ -44,14 +46,26 @@ def shift_range(max_shift: int, symmetric: bool) -> tuple[int, int]:
     return (-max_shift, 2 * max_shift) if symmetric else (0, max_shift)
 
 
+def slab_shifts(max_shift: int, symmetric: bool, plane0: int = 0,
+                planes: int | None = None) -> tuple[int, int]:
+    """(first shift, number of planes) of the slab of ``planes`` planes
+    (None: the rest) from plane ``plane0`` of ``shift_range``."""
+    lo, d = shift_range(max_shift, symmetric)
+    n = d - plane0 if planes is None else planes
+    if plane0 < 0 or n < 1 or plane0 + n > d:
+        raise ValueError(f"planes {plane0} .. {plane0 + n - 1} of a {d}-plane volume")
+    return lo + plane0, n
+
+
 def gwc_volume_norm_plain(left, right, max_shift: int, num_groups: int,
-                          symmetric: bool = True) -> torch.Tensor:
+                          symmetric: bool = True, plane0: int = 0,
+                          planes: int | None = None) -> torch.Tensor:
     """Plain PyTorch version, computed in fp32 and cast to the input dtype.
-    left, right [B, H, W, C] -> [B, D, H, W, G]."""
+    left, right [B, H, W, C] -> [B, D, H, W, G] (D the slab's planes)."""
     w = left.shape[2]
     ln = normalize_groups(left.float(), num_groups)
     rn = normalize_groups(right.float(), num_groups)
-    lo, d = shift_range(max_shift, symmetric)
+    lo, d = slab_shifts(max_shift, symmetric, plane0, planes)
     hi = lo + d - 1
     # rp[:, :, j] = rn[:, :, j - max(hi, 0)]; shift s reads columns x - s
     pad_l, pad_r = max(hi, 0), max(-lo, 0)
@@ -64,14 +78,15 @@ def gwc_volume_norm_plain(left, right, max_shift: int, num_groups: int,
 
 
 def gwc_volume_norm_bwd_plain(left, right, gbar, max_shift: int, num_groups: int,
-                              symmetric: bool = True):
+                              symmetric: bool = True, plane0: int = 0,
+                              planes: int | None = None):
     """Both input cotangents of ``gwc_volume_norm``, in closed form in fp32,
     cast to the input dtype.  With u, v the group-normalised left and right
     and cpg = C/G channels per group: yl = sum_d gbar_d/cpg * v[x - s_d],
     yr = sum_d gbar_d[x + s_d]/cpg * u[x + s_d] over the valid columns, then
     the VJP of x -> x/(|x|_g + eps), y/(n+eps) - x (x.y)/(n (n+eps)^2) with
-    n clamped at 1e-30.  left, right [B,H,W,C], gbar [B,D,H,W,G] -> two
-    [B,H,W,C]."""
+    n clamped at 1e-30.  left, right [B,H,W,C], gbar [B,D,H,W,G] (D the
+    slab's planes) -> two [B,H,W,C]."""
     b, h, w, c = left.shape
     g, eps = num_groups, 1e-5
     cpg = c // g
@@ -82,7 +97,7 @@ def gwc_volume_norm_bwd_plain(left, right, gbar, max_shift: int, num_groups: int
     u, v = x_l / (n_l + eps), x_r / (n_r + eps)
     gb = gbar.float()[..., None] / cpg  # [B, D, H, W, G, 1]
     y_l, y_r = torch.zeros_like(u), torch.zeros_like(v)
-    lo, d = shift_range(max_shift, symmetric)
+    lo, d = slab_shifts(max_shift, symmetric, plane0, planes)
     for k, s in enumerate(range(lo, lo + d)):
         a, e = max(s, 0), w + min(s, 0)  # columns x with x - s in the image
         if a < e:
@@ -184,14 +199,16 @@ def _check_cuda(what, num_groups, *ts):
 
 
 def gwc_volume_norm_fwd(left, right, max_shift: int, num_groups: int,
-                        symmetric: bool = True) -> torch.Tensor:
-    """The forward alone: K2 on CUDA tensors, the plain version on CPU ones."""
+                        symmetric: bool = True, plane0: int = 0,
+                        planes: int | None = None) -> torch.Tensor:
+    """The forward alone: K2 on CUDA tensors (one launch for the slab), the
+    plain version on CPU ones."""
     _check(left, right, num_groups)
+    lo, d = slab_shifts(max_shift, symmetric, plane0, planes)
     if left.device.type == "cpu":
-        return gwc_volume_norm_plain(left, right, max_shift, num_groups, symmetric)
+        return gwc_volume_norm_plain(left, right, max_shift, num_groups, symmetric, plane0, d)
     _check_cuda("gwc_volume_norm", num_groups, left, right)
     b, h, w, c = left.shape
-    lo, d = shift_range(max_shift, symmetric)
     out = torch.empty((b, d, h, w, num_groups), dtype=left.dtype, device=left.device)
     err = _lib().gwc_volume(
         left.data_ptr(), right.data_ptr(), out.data_ptr(), b, h, w, c, num_groups, lo, d,
@@ -199,22 +216,25 @@ def gwc_volume_norm_fwd(left, right, max_shift: int, num_groups: int,
     )
     _build.check(err, "gwc_volume_norm")
     gwc_volume_norm.launches += 1
+    gwc_volume_norm.planes += d
     return out
 
 
 def gwc_volume_norm_bwd(left, right, gbar, max_shift: int, num_groups: int,
-                        symmetric: bool = True):
+                        symmetric: bool = True, plane0: int = 0, planes: int | None = None):
     """(d left, d right) of ``gwc_volume_norm`` for the volume's cotangent
-    ``gbar`` [B,D,H,W,G]: K4 on CUDA tensors (one launch per slab of at most
-    17 planes), the plain closed form on CPU ones."""
+    ``gbar`` [B,D,H,W,G] (D the slab's planes): K4 on CUDA tensors (one
+    launch per run of at most 17 planes), the plain closed form on CPU
+    ones."""
     _check(left, right, num_groups)
-    lo, d = shift_range(max_shift, symmetric)
+    lo, d = slab_shifts(max_shift, symmetric, plane0, planes)
     b, h, w, c = left.shape
     if tuple(gbar.shape) != (b, d, h, w, num_groups):
         raise ValueError(f"gwc_volume_norm_bwd: gbar {tuple(gbar.shape)}, expected "
                          f"{(b, d, h, w, num_groups)}")
     if left.device.type == "cpu":
-        return gwc_volume_norm_bwd_plain(left, right, gbar, max_shift, num_groups, symmetric)
+        return gwc_volume_norm_bwd_plain(left, right, gbar, max_shift, num_groups, symmetric,
+                                         plane0, d)
     _check_cuda("gwc_volume_norm_bwd", num_groups, left, right, gbar)
     lib = _lib_bwd()
     smem = lib.gwc_volume_bwd_smem(c, num_groups, d, _DTYPES[left.dtype])
@@ -236,31 +256,37 @@ def gwc_volume_norm_bwd(left, right, gbar, max_shift: int, num_groups: int,
     )
     _build.check(err, "gwc_volume_norm_bwd")
     gwc_volume_norm_bwd.launches += slabs
+    gwc_volume_norm_bwd.planes += d
     return gl, gr
 
 
 class _GwcVolumeNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, left, right, max_shift, num_groups, symmetric):
-        ctx.args = (max_shift, num_groups, symmetric)
+    def forward(ctx, left, right, max_shift, num_groups, symmetric, plane0, planes):
+        ctx.args = (max_shift, num_groups, symmetric, plane0, planes)
         ctx.save_for_backward(left, right)
-        return gwc_volume_norm_fwd(left, right, max_shift, num_groups, symmetric)
+        return gwc_volume_norm_fwd(left, right, *ctx.args)
 
     @staticmethod
     def backward(ctx, gbar):
         left, right = ctx.saved_tensors
         gl, gr = gwc_volume_norm_bwd(left, right, gbar.contiguous(), *ctx.args)
-        return gl, gr, None, None, None
+        return gl, gr, None, None, None, None, None
 
 
-def gwc_volume_norm(left, right, max_shift: int, num_groups: int,
-                    symmetric: bool = True) -> torch.Tensor:
-    """Cosine group-wise correlation volume, differentiable in both inputs;
-    see the module docstring."""
-    return _GwcVolumeNorm.apply(left, right, max_shift, num_groups, symmetric)
+def gwc_volume_norm(left, right, max_shift: int, num_groups: int, symmetric: bool = True,
+                    plane0: int = 0, planes: int | None = None) -> torch.Tensor:
+    """Cosine group-wise correlation volume, or the slab of ``planes`` of
+    its planes from ``plane0`` on, differentiable in both inputs (the
+    gradient of the planes outside the slab is not taken); see the module
+    docstring."""
+    return _GwcVolumeNorm.apply(left, right, max_shift, num_groups, symmetric, plane0, planes)
 
 
-# Kernel launches of K2 and K4; the smoke run reads them to show that the
-# main path went through the kernels.
+# Kernel launches of K2 and K4, and the planes they computed; the smoke run
+# reads them to show that the main path went through the kernels (on one
+# process's slab of the planes under disparity parallelism).
 gwc_volume_norm.launches = 0
 gwc_volume_norm_bwd.launches = 0
+gwc_volume_norm.planes = 0
+gwc_volume_norm_bwd.planes = 0

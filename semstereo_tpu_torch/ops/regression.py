@@ -43,21 +43,30 @@ def _topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
-def topk_planes(weights: torch.Tensor, k: int, symmetric: bool):
+def topk_plane_indices(weights: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices [B, H, W, k] of the k highest-weight planes of weights
+    [B, D, H, W] per pixel, ascending."""
+    d = weights.shape[1]
+    if k > d:
+        raise ValueError(f"top-{k} of {d} planes")
+    return torch.sort(_topk_indices(weights.movedim(1, -1), k), dim=-1).values
+
+
+def topk_planes(weights: torch.Tensor, k: int, symmetric: bool, ind=None):
     """The k highest-weight disparity planes per pixel.
 
     weights [B, D, H, W] raw (pre-softmax).  Top-k is taken on the raw
     weights (softmax is monotonic), the indices are re-sorted ascending and
     the kept softmax probabilities are recovered from the logsumexp.
+    ``ind`` (from ``topk_plane_indices``) gives the planes instead.
 
     Returns (topk_prob, topk_raw, samples), each [B, k, H, W]; samples are
     the plane disparities ``ind - D/2`` (symmetric) or ``ind``.
     """
     d = weights.shape[1]
-    if k > d:
-        raise ValueError(f"top-{k} of {d} planes")
+    if ind is None:
+        ind = topk_plane_indices(weights, k)
     raw_l = weights.movedim(1, -1)  # [B, H, W, D]
-    ind = torch.sort(_topk_indices(raw_l, k), dim=-1).values
     topk_raw = torch.gather(raw_l, -1, ind)
     lse = torch.logsumexp(raw_l, dim=-1, keepdim=True)
     topk_prob = torch.exp(topk_raw - lse)

@@ -9,6 +9,7 @@ import torch
 
 from semstereo_tpu_torch.config import TrainConfig, lr_for_epoch
 from semstereo_tpu_torch.models import SemStereo, build_model
+from semstereo_tpu_torch.parallel import Mesh, make_mesh
 from semstereo_tpu_torch.utils.timm_convert import load_and_merge
 
 
@@ -26,12 +27,21 @@ def build_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=cfg.optim.lr, betas=tuple(cfg.optim.betas), eps=1e-8)
 
 
-def init_state(cfg: TrainConfig, device="cuda") -> TrainState:
+def init_state(cfg: TrainConfig, device="cuda", mesh: Mesh | None = None) -> TrainState:
     """A fresh state: the model of ``cfg.model`` on ``device`` (the card
     unless the caller asks for the CPU) in train mode, with weights drawn
     from ``cfg.seed`` and, when ``cfg.model.pretrained_backbone`` names a
-    timm checkpoint, its backbone loaded from it; and its optimizer."""
-    model = build_model(cfg.model, device=device, seed=cfg.seed).train()
+    timm checkpoint, its backbone loaded from it; and its optimizer.  The
+    model splits its cost volumes over ``mesh``'s disp axis; with
+    ``cfg.parallel.disp`` above 1 and no mesh given, over
+    ``make_mesh(cfg.parallel.data, cfg.parallel.disp)``.  ``parallel.disp``
+    is the one switch: the JAX package's ``ModelConfig.shard_disp`` splits
+    nothing on a mesh whose disp axis is 1, so the port has no such field."""
+    if mesh is None and cfg.parallel.disp > 1:
+        mesh = make_mesh(cfg.parallel.data, cfg.parallel.disp)
+    if mesh is not None and mesh.disp != cfg.parallel.disp:
+        raise ValueError(f"mesh disp={mesh.disp}, config disp={cfg.parallel.disp}")
+    model = build_model(cfg.model, device=device, seed=cfg.seed, mesh=mesh).train()
     if cfg.model.pretrained_backbone:
         n = load_and_merge(cfg.model.pretrained_backbone, model)
         print(f"loaded pretrained backbone: {n} leaves from {cfg.model.pretrained_backbone}")

@@ -11,7 +11,12 @@ Under data parallelism (``parallel.py``) each process runs the step on its
 rows of the global batch: its losses and metrics are its shares of the
 global-batch values, the gradients are summed over the processes in one
 all-reduce before the clip and the update, and the scalars the steps
-return are the global values.
+return are the global values.  Under disparity parallelism the processes
+of a disp group hold the same rows, so the world-summed denominators count
+those rows ``disp`` times: each process's loss is 1/disp of its rows'
+share, and the same world-wide sums of the gradients and scalars give the
+global values (the model's slabs send their parts of the gradient back
+through the gathers' adjoints).
 """
 
 from __future__ import annotations

@@ -29,6 +29,14 @@ process, so each holds the one-process mean and no meter is reduced.  The
 confusion matrix over the list is the sum of each process's matrix over its
 rows, summed once after the last step; with ``eval_seg_per_batch`` each
 step's matrix is summed over the processes before it is metered.
+
+Disparity parallelism (``cfg.parallel.disp`` above 1, ``parallel.make_mesh``):
+the processes form ``data`` groups of ``disp``; the processes of a group
+load the same rows (the loader deals by data index over the data count),
+and the batch sizes split over the data count.  The confusion matrices are
+summed over one process of each group (the others add zeros), so the
+printed matrix is the one-process matrix; the group's first process writes
+the ``--save-dir`` dumps of its rows.
 """
 
 from __future__ import annotations
@@ -50,8 +58,8 @@ from semstereo_tpu_torch.parallel import (
     barrier,
     broadcast_check,
     check_parallel,
+    make_mesh,
     process_count,
-    process_index,
 )
 from semstereo_tpu_torch.train import checkpoint as ckpt
 from semstereo_tpu_torch.train.state import TrainState, init_state, set_learning_rate
@@ -147,12 +155,13 @@ class Trainer:
             raise RuntimeError(
                 f"WORLD_SIZE={launched} but this process is in a group of 1: join the group "
                 "first (parallel.init_process_group, as cli.train does under torchrun)")
-        check_parallel(cfg.parallel, world)
+        check_parallel(cfg.parallel, world, cfg.model)
+        self.mesh = make_mesh(cfg.parallel.data, cfg.parallel.disp)
+        data = self.mesh.data
         for name in ("batch_size", "test_batch_size"):
-            if getattr(cfg.data, name) % world:
+            if getattr(cfg.data, name) % data:
                 raise ValueError(f"{name}={getattr(cfg.data, name)} is the global batch; it "
-                                 f"does not split over {world} processes")
-        self.rank, self.world = process_index(), world
+                                 f"does not split over {data} data-parallel processes")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to run on the CPU")
@@ -172,14 +181,14 @@ class Trainer:
         if eval_dataset is None and cfg.data.testlist and os.path.exists(cfg.data.testlist):
             eval_dataset = build_dataset(cfg.data.testlist, False)
 
-        shard = (self.rank, world)
+        shard = (self.mesh.data_index, data)
         self.train_loader = DataLoader(
-            train_dataset, cfg.data.batch_size // world, shuffle=True,
+            train_dataset, cfg.data.batch_size // data, shuffle=True,
             num_workers=cfg.data.num_workers, drop_last=True, seed=cfg.seed, shard=shard,
             prefetch=cfg.data.prefetch,
         ) if train_dataset is not None else None
         self.eval_loader = DataLoader(
-            eval_dataset, cfg.data.test_batch_size // world, shuffle=False,
+            eval_dataset, cfg.data.test_batch_size // data, shuffle=False,
             num_workers=cfg.data.num_workers, drop_last=False, seed=cfg.seed, shard=shard,
             prefetch=cfg.data.prefetch,
         ) if eval_dataset is not None else None
@@ -197,7 +206,7 @@ class Trainer:
         load from ``cfg.loadckpt`` when one is named.  Every process must
         then hold process 0's weights and statistics."""
         cfg = self.cfg
-        self.state = init_state(cfg, device=self.device)
+        self.state = init_state(cfg, device=self.device, mesh=self.mesh)
         if cfg.resume and ckpt.latest_epoch(cfg.logdir) is not None:
             self.state = ckpt.restore_checkpoint(cfg.logdir, self.state)
             print(f"resumed from {cfg.logdir} at epoch {self.state.epoch}")
@@ -283,11 +292,12 @@ class Trainer:
             label_est = scalars.pop("label_est", None)
             if disp_est is not None:
                 disp_est = disp_est.cpu().numpy()
-            if save_dir and real and disp_est is not None:
+            if save_dir and real and disp_est is not None and self.mesh.disp_index == 0:
                 self._save_outputs(save_dir, batch, disp_est[:real],
                                    None if label_est is None else label_est.cpu().numpy()[:real])
             if cm is not None:
-                cm = cm.cpu().numpy()
+                # one process of each disp group counts its rows
+                cm = cm.cpu().numpy() * (self.mesh.disp_index == 0)
                 if per_batch:
                     (cm,) = all_reduce_sum_tree((cm,))
                     seg_batch_meter.update(_seg_scalars(cm, cfg.model.num_classes - 1))
@@ -321,8 +331,8 @@ class Trainer:
 
     def _n_eval_steps(self) -> int:
         """The eval steps every process runs: those of the longest shard,
-        shard 0 (the loader deals the list round-robin, ``idx[rank::N]``)."""
-        longest = -(-len(self.eval_loader.dataset) // self.world)
+        shard 0 (the loader deals the list round-robin, ``idx[data_index::data]``)."""
+        longest = -(-len(self.eval_loader.dataset) // self.mesh.data)
         return -(-longest // self.eval_loader.batch_size)
 
     def _template_batch(self) -> dict:
@@ -346,8 +356,8 @@ class Trainer:
     def _save_outputs(self, save_dir, batch, disp_est, label_est=None):
         """Submission-style dump: one 256 x uint16 disparity PNG (the KITTI
         encoding) per input, named by the sample's ``left_filename`` (else
-        its index in the eval list, ``rank + N * k`` for the k-th row of a
-        process's shard), plus a uint8 label PNG when the labels were
+        its index in the eval list, ``i + N * k`` for the k-th row of shard
+        i of N), plus a uint8 label PNG when the labels were
         estimated.  The maps are written at the network's input size, not
         cropped by ``top_pad``/``right_pad``, as the JAX package writes
         them."""
@@ -359,7 +369,7 @@ class Trainer:
             if names is not None:
                 stem = os.path.splitext(os.path.basename(names[i]))[0]
             else:
-                stem = f"{self.rank + self.world * self._dump_index:06d}"
+                stem = f"{self.mesh.data_index + self.mesh.data * self._dump_index:06d}"
                 self._dump_index += 1
             d = np.clip(disp_est[i] * 256.0, 0, 65535).astype(np.uint16)
             Image.fromarray(d).save(os.path.join(save_dir, f"{stem}_disp.png"))

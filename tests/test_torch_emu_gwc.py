@@ -10,7 +10,12 @@ of ``semstereo_tpu_torch.emu`` (g++ against stand-in CUDA headers):
   in fp32, D = 36 in bf16, and a positive range), against
   ``gwc_volume_norm_bwd_plain``;
 * both kernels' shared memory per launch, from their host functions, for
-  every D from 1 to 64 in both dtypes, against the card's 232,448 bytes.
+  every D from 1 to 64 in both dtypes, against the card's 232,448 bytes;
+* both kernels on the plane slabs that disparity parallelism gives one
+  process (one launch each, at ``shift_lo = lo + p0`` and ``D = n``): the
+  symmetric D = 16 volume split in two (shifts -8..-1, which hold no zero
+  shift, and 0..7) and the positive D = 8 volume split in two (0..3 and
+  4..7), against the plain versions' slabs.
 
 Tolerances are the card tests' ``CARD_TOL`` (tests/test_torch_kernels.py):
 the kernels sum in fp32 and round once to the input dtype, so bf16 results
@@ -145,6 +150,56 @@ def test_k4_source_takes_large_plane_counts(k4, b, h, w, g, max_shift, symmetric
         got, ref = (t.float().reshape(b, h, w, g, -1) for t in (got, ref))
         scale = ref.abs().amax(-1, keepdim=True).clamp_min(1e-30)
         assert ((got - ref).abs() / scale).max().item() <= CARD_TOL[dtype]
+
+
+# (B, H, W, C, G, max_shift, symmetric, first plane, planes): the two
+# slabs of disp = 2 at the model's symmetric D8 = 16 (C = 256, G = 32) and
+# at a positive D = 8 (G = 8), at widths no tile divides; and the first
+# slab of a symmetric maxdisp-192 /8 volume at disp 2 (shifts -24..-1),
+# which K4 takes in more than one launch, the first of them on a range
+# without shift 0
+SLAB_CASES = [
+    (1, 1, 37, 256, 32, 8, True, 0, 8),
+    (1, 1, 37, 256, 32, 8, True, 8, 8),
+    (2, 1, 21, 64, 8, 8, False, 0, 4),
+    (2, 1, 21, 64, 8, 8, False, 4, 4),
+    (1, 2, 45, 64, 8, 24, True, 0, 24),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,g,max_shift,symmetric,p0,n", SLAB_CASES)
+def test_k2_and_k4_sources_take_a_plane_slab(k2, k4, dtype, b, h, w, c, g, max_shift,
+                                              symmetric, p0, n):
+    lo, _ = cost_volume.slab_shifts(max_shift, symmetric, p0, n)
+    left, right = (t.to(dtype) for t in _features(17, b, h, w, c, zero_group=True, g=g))
+    vol = torch.empty((b, n, h, w, g), dtype=dtype)
+    assert k2.gwc_volume(left.data_ptr(), right.data_ptr(), vol.data_ptr(), b, h, w, c, g, lo,
+                         n, _DTYPES[dtype], None) == 0
+    want = cost_volume.gwc_volume_norm_plain(left.float(), right.float(), max_shift, g,
+                                             symmetric, p0, n)
+    whole = cost_volume.gwc_volume_norm_plain(left.float(), right.float(), max_shift, g,
+                                              symmetric)
+    assert torch.equal(want, whole[:, p0:p0 + n])
+    assert ((vol.float() - want).abs().max() / want.abs().max()).item() <= CARD_TOL[dtype]
+
+    gbar = torch.from_numpy(np.random.default_rng(18).standard_normal((b, n, h, w, g))
+                            .astype(np.float32))
+    for k, s in enumerate(range(lo, lo + n)):  # NaN where x - s leaves the image: unused
+        gbar[:, k, :, :max(s, 0)] = float("nan")
+        gbar[:, k, :, w + min(s, 0):] = float("nan")
+    gbar = gbar.to(dtype)
+    gl, gr = torch.empty_like(left), torch.empty_like(right)
+    ws = torch.empty((2, b, h, w, c), dtype=torch.float32)
+    assert k4.gwc_volume_bwd_slabs(n) == (1 if n <= 17 else 2)
+    assert k4.gwc_volume_bwd(left.data_ptr(), right.data_ptr(), gbar.data_ptr(), gl.data_ptr(),
+                             gr.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(), b, h, w, c, g,
+                             lo, n, _DTYPES[dtype], None) == 0
+    ref = cost_volume.gwc_volume_norm_bwd_plain(left, right, gbar, max_shift, g, symmetric, p0, n)
+    for got, r in zip((gl, gr), ref):
+        got, r = (t.float().reshape(b, h, w, g, -1) for t in (got, r))
+        scale = r.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        assert ((got - r).abs() / scale).max().item() <= CARD_TOL[dtype]
 
 
 @pytest.mark.parametrize("kernel", ["k2", "k4"])

@@ -348,3 +348,34 @@ def test_sum_tree_matches_jax(runs, monkeypatch):
 def test_check_parallel_refuses(parallel, world):
     with pytest.raises(ValueError):
         check_parallel(parallel, world)
+
+
+US3D = {stage: dict(maxdisp=64, topk=24, att_weights_only=stage == 1) for stage in (1, 2)}
+
+
+@pytest.mark.parametrize("parallel,world,model,match", [
+    (ParallelConfig(disp=4), 4, US3D[2], "/4 top-k concat volume's 24 planes"),
+    (ParallelConfig(data=1, disp=4), 4, US3D[2], "/4 top-k concat"),
+    (ParallelConfig(disp=2), 2, MODEL, "/8 cosine volume's 4 planes"),
+    (ParallelConfig(disp=8), 8, US3D[1], "/8 cosine volume's 16 planes"),
+    (ParallelConfig(space=2), 2, None, "spatial parallelism"),
+    (ParallelConfig(disp=2, space=2), 4, US3D[2], "spatial parallelism"),
+    (ParallelConfig(disp=3), 4, None, "disp=3 does not divide")])
+def test_check_parallel_refuses_what_does_not_split(parallel, world, model, match):
+    """A disp whose slabs do not hold a multiple of 4 planes of each volume
+    (naming the volume), any spatial split, and a disp that does not divide
+    the processes."""
+    with pytest.raises(ValueError, match=match):
+        check_parallel(parallel, world, None if model is None else ModelConfig(**model))
+
+
+@pytest.mark.parametrize("parallel,world,model", [
+    (ParallelConfig(disp=2), 2, US3D[2]), (ParallelConfig(disp=4), 4, US3D[1]),
+    (ParallelConfig(data=2, disp=2), 4, US3D[2]),
+    (ParallelConfig(disp=2), 2, dict(name="SemStereo_WHU", maxdisp=64)),
+    (ParallelConfig(data=-1, disp=2), 8, US3D[1])])
+def test_check_parallel_accepts_the_plane_count_table(parallel, world, model):
+    """data x disp = world for the disps of each volume's plane count: US3D
+    stage 2 (16 and 24 planes) at 1 and 2, stage 1 (16) at 1, 2 and 4, WHU
+    at maxdisp 64 (8 and 16) at 1 and 2."""
+    check_parallel(parallel, world, ModelConfig(**model))

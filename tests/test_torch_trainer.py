@@ -251,8 +251,8 @@ def test_trainer_runs_on_the_card_unless_asked_for_cpu():
 @pytest.mark.parametrize("flag", ["--data-parallel=2", "--disp-parallel=2",
                                   "--space-parallel=2"])
 def test_train_cli_refuses_flags_of_later_slices(flag):
-    """Disparity and spatial parallelism are not ported; two data-parallel
-    processes need a launch of two."""
+    """Spatial parallelism is not ported; two data-parallel processes, or a
+    disp group of two, need a launch of two."""
     with pytest.raises(SystemExit):
         cli_train.parse_config([flag])
 
