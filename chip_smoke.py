@@ -120,6 +120,38 @@
    process's eval of the disp run's checkpoint (``Trainer.evaluate`` at
    the run's compute dtype), every step and eval batch launching
    ``TRAIN_LAUNCHES`` and ``EVAL_LAUNCHES`` per process.
+13. space parallel (after disp parallel): two processes on the one card,
+   gloo on CUDA tensors, splitting the images' rows (``space = 2``,
+   ``data = 1``; ``chip_smoke.py --worker space ...``): (a) the fp32
+   256x256 agreement step on each process's 128 rows of the global batch
+   of 2, against the one-process step (``TRAIN_BOUNDS``), the two
+   processes' gradients and updated parameters bitwise equal,
+   ``TRAIN_LAUNCHES`` per process with K2's and K4's launch on 16 of the 32
+   /8 rows each; (b) the flagship eval (US3D stage 2, 1024x1024, bf16, B =
+   1) on 512 rows a process: the gathered ``label_l`` and /8 attention
+   volume against one process's within ``BF16_REL``, the stage-2 cost
+   within ``SPACE_COST_REL`` on the pixels whose top-k choice equals one
+   process's, that share (at least ``SPACE_SAME_TOPK``) and the
+   disparity's differences; the same request in fp32 with every /4 plane
+   kept, its disparity within ``FUSE_FP32_BOUNDS`` of one process's; the
+   bf16 disparity's median difference within ``SPACE_BF16_LEVEL`` times one
+   process's bf16 against fp32; the differing top-k share in the band
+   around the slab boundary within ``SPACE_BAND_EXCESS`` of the median
+   band's; ``EVAL_LAUNCHES`` per request per process with K2 on 64 of
+   the 128 /8 rows, each process's peak memory beside one process's, ms
+   per pair per process (two processes share the card and gloo stages
+   through the host: no speed of the split); one fp32 256x256 request
+   with every /4 plane kept, its disparity within ``FUSE_FP32_BOUNDS`` of
+   one process's; the train path's step (1024x1024, batch 2, bf16) at
+   ``space = 2``, its launches and each process's peak memory beside the
+   train path's; (c) ``cli.train --space-parallel 2`` for the trainer
+   phase's stage-2 epoch: both processes loading one process's rows, the
+   first batch each moved to the card equal to one process's cut by
+   height, its first step's loss within ``SPACE_CLI_LOSS_REL`` of the
+   one-process epoch's, both processes' eval results within
+   ``SPACE_CLI_EVAL_REL`` of one process's eval of the space run's
+   checkpoint, every step and eval batch launching ``TRAIN_LAUNCHES`` and
+   ``EVAL_LAUNCHES`` per process.
 
 Prints one JSON line of per-kernel numbers, then, last, the ``ok`` line.
 Exits non-zero (and prints no result) without a CUDA device or outside the
@@ -240,6 +272,44 @@ DISP_SAME_TOPK = 0.99
 # exactly.
 DISP_CLI_LOSS_REL = 5e-3
 DISP_CLI_EVAL_REL = 1e-5
+# The space-parallel phase: processes per space group, timed requests per
+# process at the flagship after one recorded request, and the least share
+# of /4 pixels whose top-k choice must agree with one process's.  Unlike
+# the disp split, which computed each plane from the same operands as one
+# process, a row slab runs the front end's cuDNN convs at other shapes,
+# which round otherwise in bf16, and the untrained net's near-ties of the
+# top-24 flip: 76.2 %, 79.0 %, 79.0 % and 79.0 % equal in four runs on an
+# H100 80GB HBM3 at 700 W, with label_l and the /8 attention volume within
+# BF16_REL (9.6e-3 and 1.3e-2) and the stage-2 cost on the equal pixels,
+# which the flipped near-ties around them feed through the /4 convs,
+# within SPACE_COST_REL (4.4e-2).  A wrong halo or reduction moves
+# boundary rows by the order of the values themselves, and breaks the fp32
+# requests' FUSE_FP32_BOUNDS.  Since a halo fault touches only a few /4
+# rows around the slab boundary, three witnesses part it from rounding:
+# the flagship request in fp32 with every /4 plane kept, held to
+# FUSE_FP32_BOUNDS; the bf16 split's median disparity difference (columns
+# >= 32), held to SPACE_BF16_LEVEL times one process's bf16 request's
+# against its fp32 request on the same weights (the bf16 level); and the
+# share of differing top-k choices in bands of SPACE_BAND_ROWS /4 rows,
+# where the band centred on the slab boundary may exceed the median band
+# by SPACE_BAND_EXCESS at most (rounding spreads evenly, a halo fault
+# makes the boundary rows' choices near random).  These three were set
+# before their first run on the card (PERF.md section 6).
+SPACE = 2
+SPACE_TIMED = 3
+SPACE_SAME_TOPK = 0.6
+SPACE_COST_REL = 0.1
+SPACE_BF16_LEVEL = 2.0
+SPACE_BAND_ROWS = 8
+SPACE_BAND_EXCESS = 0.1
+# (c): the first step's loss against the one-process epoch's (relative;
+# 6.9e-4, 0, 7.2e-5 and 3.8e-4 in those runs), and each eval result against
+# one process's eval of the same checkpoint (relative, absolute below 1;
+# 3.1e-3, 8.2e-4, 1.7e-4 and 2.5e-4, the bf16 rounding above moving a few
+# pixels' choices).  A wrong slab or halo moves them by whole percent; the
+# rows and first batch loaded are compared exactly.
+SPACE_CLI_LOSS_REL = 5e-3
+SPACE_CLI_EVAL_REL = 1e-2
 # K4 at the main path's shape at the train batch: features [2, 128, 128, 256].
 K4_SHAPE = ((TRAIN_BATCH, 128, 128, 256), 32, 8)
 # K4 at symmetric plane counts above one launch's slab, the smallest that
@@ -450,6 +520,8 @@ def reset_counts(ops):
     ops.gwc_volume_norm_bwd.launches = 0
     ops.gwc_volume_norm.planes = 0
     ops.gwc_volume_norm_bwd.planes = 0
+    ops.gwc_volume_norm.rows = 0
+    ops.gwc_volume_norm_bwd.rows = 0
 
 
 def run_path(ops, cpu_model, n_warm=2, n_timed=10):
@@ -1596,6 +1668,362 @@ def run_disp_parallel(ops, tmp: str) -> dict:
     return res
 
 
+def rows_launched(ops) -> dict:
+    """The rows K2 and K4 computed since the counts were reset (a launch's
+    rows counted once)."""
+    return {"K2": ops.gwc_volume_norm.rows, "K4": ops.gwc_volume_norm_bwd.rows}
+
+
+def row_slab(t: torch.Tensor, mesh, axis: int = 1) -> torch.Tensor:
+    r0, n = mesh.row_slab(t.shape[axis])
+    return t.narrow(axis, r0, n)
+
+
+def eval_records(model, left, right) -> dict:
+    """One request: its label logits, disparity, /8 attention volume (the
+    trilinear resize's input), stage-2 cost and top-k samples (the top-k
+    regression's inputs), on the CPU (the process's rows of each under a
+    row split); with the peak memory it took from a reset."""
+    from semstereo_tpu_torch.models import semstereo as sem
+
+    seen = {}
+    resize, regress = sem.resize_trilinear, sem.regression_topk
+
+    def rec_resize(x, *a):
+        seen["att"] = x.float().cpu()
+        return resize(x, *a)
+
+    def rec_regress(cost, samples, k):
+        seen["cost"], seen["samples"] = cost.float().cpu(), samples.float().cpu()
+        return regress(cost, samples, k)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sem.resize_trilinear, sem.regression_topk = rec_resize, rec_regress
+    try:
+        out = model(left, right)
+        torch.cuda.synchronize()
+    finally:
+        sem.resize_trilinear, sem.regression_topk = resize, regress
+    seen["peak_bytes"] = torch.cuda.max_memory_allocated()
+    seen["disp"] = out["disp"][0].float().cpu()
+    seen["label"] = out["label_l"].float().cpu()
+    return seen
+
+
+def every_plane(model_cfg):
+    """``model_cfg`` (maxdisp 64) with every /4 plane kept by the top-k
+    stages (topk = refine_topk = 32), as ``agreement_cfg``'s model."""
+    return dataclasses.replace(model_cfg, topk=32, refine_topk=32)
+
+
+def boundary_bands(same: torch.Tensor, boundary: int, width: int) -> dict:
+    """The share of /4 pixels whose top-k choice differs from one process's
+    in bands of ``width`` rows, one of them centred on the slab boundary at
+    /4 row ``boundary``: a halo fault lands in that band, a rounding
+    difference anywhere."""
+    differs = ~same  # [B, H4, W4]
+    starts = list(range((boundary - width // 2) % width, differs.shape[1] - width + 1, width))
+    shares = [float(differs[:, r:r + width].double().mean()) for r in starts]
+    at = starts.index(boundary - width // 2)
+    others = shares[:at] + shares[at + 1:]
+    return dict(width=width, rows=[(r, r + width) for r in starts], shares=shares,
+                boundary=shares[at], others_median=statistics.median(others))
+
+
+def train_1024_step(ops, device, mesh=None) -> dict:
+    """The train path's step (US3D stage 2, 1024x1024, batch 2, bf16) after
+    one warm-up step, with its peak memory from a reset; on the process's
+    row slab of the batch under a mesh."""
+    from semstereo_tpu_torch.config import ParallelConfig, TRAIN_PRESETS
+    from semstereo_tpu_torch.data import SyntheticStereoDataset
+    from semstereo_tpu_torch.parallel import slab_rows
+    from semstereo_tpu_torch.train import init_state, make_train_step
+
+    cfg = TRAIN_PRESETS["us3d_stage2"].replace(compute_dtype="bfloat16")
+    if mesh is not None:
+        cfg = cfg.replace(parallel=ParallelConfig(space=mesh.space))
+    state = init_state(cfg, device=device, mesh=mesh)
+    batch = SyntheticStereoDataset(TRAIN_BATCH, 1024, 1024, cfg.model.maxdisp).batch(
+        0, TRAIN_BATCH)
+    batch = {k: v.to(device) for k, v in slab_rows(batch, mesh).items()}
+    step = make_train_step(cfg)
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    out = step(state, batch)
+    torch.cuda.synchronize()
+    return dict(ms=1e3 * (time.perf_counter() - t0), peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=counts(ops), rows=rows_launched(ops), loss=float(out["loss"]))
+
+
+def space_worker(out_path: str, cli_argv: list[str]) -> None:
+    """One of the two processes of the space-parallel phase (docstring,
+    item 13), gloo on CUDA tensors."""
+    from semstereo_tpu_torch import ops, parallel
+    from semstereo_tpu_torch.cli import train as cli_train
+    from semstereo_tpu_torch.config import PRESETS, ParallelConfig
+    from semstereo_tpu_torch.train import init_state, make_train_step
+
+    device = parallel.init_process_group("cuda", backend="gloo")
+    mesh = parallel.make_mesh(-1, 1, SPACE)
+    res = {}
+    # (a)
+    cfg = agreement_cfg().replace(parallel=ParallelConfig(space=SPACE))
+    state = init_state(cfg, device=device, mesh=mesh)
+    batch = {k: v.to(device) for k, v in parallel.slab_rows(agreement_batch(), mesh).items()}
+    train_step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    scalars = train_step(state, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    record = step_record(scalars, state.model)
+    record["params"] = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    res["train"] = dict(record=record, launches=counts(ops), rows=rows_launched(ops), ms=ms)
+    del state
+    # (b)
+    model = seeded_model(PRESETS["us3d_stage2"], seed=0, mesh=mesh).to(device, PATH_DTYPE)
+    left, right = (row_slab(t, mesh).to(device, PATH_DTYPE) for t in stereo_pair(1024, 8, 0))
+    rec = eval_records(model, left, right)
+    reset_counts(ops)
+    times = []
+    for _ in range(SPACE_TIMED):
+        t0 = time.perf_counter()
+        model(left, right)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    res["eval"] = dict(records=rec, ms=times, launches=counts(ops), rows=rows_launched(ops))
+    del model
+    model = seeded_model(every_plane(PRESETS["us3d_stage2"]), seed=0, mesh=mesh).to(device)
+    left, right = (row_slab(t, mesh).to(device) for t in stereo_pair(1024, 8, 0))
+    res["eval_fp32_1024"] = model(left, right)["disp"][0].cpu()
+    del model
+    model = seeded_model(agreement_cfg().model, seed=0, mesh=mesh).to(device)
+    left, right = (row_slab(t, mesh).to(device) for t in stereo_pair(256, 5, seed=1))
+    res["eval_fp32"] = model(left, right)["disp"][0].cpu()
+    del model
+    res["train_1024"] = train_1024_step(ops, device, mesh)
+    # (c): the first train batch each process moved to the card, and the
+    # launches of every step
+    from semstereo_tpu_torch.train import trainer as trainer_mod
+
+    steps, first = [], {}
+    device_batch = trainer_mod._device_batch
+
+    def recording(batch, keys, dev, mesh=None):
+        out = device_batch(batch, keys, dev, mesh)
+        if "disparity_4" in out and not first:
+            first.update({k: v.cpu() for k, v in out.items()})
+        return out
+
+    trainer_mod._device_batch = recording
+    try:
+        with instrumented_steps(ops, steps):
+            trainer = cli_train.main(cli_argv)
+    finally:
+        trainer_mod._device_batch = device_batch
+    loader = trainer.train_loader
+    res["cli"] = dict(steps=steps, history=trainer.history, rows=loader._indices().tolist(),
+                      shard=(loader.shard_index, loader.shard_count), first_batch=first)
+    torch.save(res, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def run_space_parallel(ops, tmp: str, path: dict, train: dict) -> dict:
+    """The space-parallel phase (docstring, item 13): the one-process
+    references, then the two processes.  The one-process epoch of (c) is
+    the trainer phase's stage 2 in ``tmp/stage2``; the one-process peak
+    memory of the eval and of the train step are the path phases'."""
+    from semstereo_tpu_torch.cli import train as cli_train
+    from semstereo_tpu_torch.config import PRESETS
+    from semstereo_tpu_torch.parallel import Mesh
+    from semstereo_tpu_torch.train import checkpoint as ckpt
+    from semstereo_tpu_torch.train import init_state, make_train_step
+    from semstereo_tpu_torch.train.trainer import Trainer
+
+    script = os.path.abspath(__file__)
+    cfg = agreement_cfg()
+    state = init_state(cfg)
+    want = step_record(make_train_step(cfg)(state, {k: v.cuda() for k, v in
+                                                     agreement_batch().items()}), state.model)
+    del state
+    pair = stereo_pair(1024, 8, 0)
+    model = seeded_model(PRESETS["us3d_stage2"], seed=0).to("cuda", PATH_DTYPE)
+    one = eval_records(model, *(t.to("cuda", PATH_DTYPE) for t in pair))
+    # the bf16 level: the same request in fp32, and in fp32 with every /4
+    # plane kept (the split's fp32 witness at the flagship's size)
+    one_fp32_1024 = model.float()(*(t.cuda() for t in pair))["disp"][0].cpu()
+    del model
+    model = seeded_model(every_plane(PRESETS["us3d_stage2"]), seed=0).cuda()
+    one_fp32_1024_every = model(*(t.cuda() for t in pair))["disp"][0].cpu()
+    del model
+    model = seeded_model(cfg.model, seed=0).cuda()
+    left, right = stereo_pair(256, 5, seed=1)
+    one_fp32 = model(left.cuda(), right.cuda())["disp"][0].cpu()
+    del model
+    root = f"{tmp}/data"
+    cli_argv = ["--preset", "us3d_stage2", "--datapath", root, "--trainlist",
+                f"{root}/train.txt", "--testlist", f"{root}/test.txt", "--loadckpt",
+                f"{tmp}/stage1", "--epochs", "1", "--save-freq", "1", "--compute-dtype",
+                "bfloat16", "--batch-size", str(TRAIN_BATCH), "--test-batch-size",
+                str(TRAIN_BATCH), "--num-workers", str(TRAINER_WORKERS), "--device", "cuda",
+                "--logdir", f"{tmp}/space_run", "--space-parallel", str(SPACE)]
+    port = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+            "WORLD_SIZE": str(SPACE)}
+    t0 = time.perf_counter()
+    spawn([([script, "--worker", "space", f"{tmp}/space{r}.pt", *cli_argv],
+            dict(port, RANK=str(r), LOCAL_RANK="0")) for r in range(SPACE)], DP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(f"{tmp}/space{r}.pt", weights_only=False) for r in range(SPACE)]
+    meshes = [Mesh(data=1, disp=1, space=SPACE, space_index=r) for r in range(SPACE)]
+    failures = []
+    # (a)
+    tr = [r["train"] for r in ranks]
+    agreement, ok = step_agreement(tr[0]["record"], want)
+    equal = all(torch.equal(tr[0]["record"][part][n], t) for part in ("grads", "params")
+                for n, t in tr[1]["record"][part].items())
+    res = {"wall_s": wall, "train": dict(
+        size=256, dtype="float32", global_batch=2, ms_per_step=[t["ms"] for t in tr],
+        launches=[t["launches"] for t in tr], rows=[t["rows"] for t in tr], ranks_equal=equal,
+        **agreement)}
+    if not ok:
+        failures.append("the space=2 step disagrees with the one-process step")
+    if not equal:
+        failures.append("the two processes' gradients or parameters differ")
+    if any(t["launches"] != TRAIN_LAUNCHES or t["rows"] != {"K2": 16, "K4": 16} for t in tr):
+        failures.append("space=2 train launches or rows")
+    # (b)
+    ev = [r["eval"] for r in ranks]
+    got = {k: torch.cat([e["records"][k] for e in ev], dim=1 if k in ("label", "disp") else 2)
+           for k in ("label", "disp", "att", "cost", "samples")}
+    same = (got["samples"] == one["samples"]).all(dim=1)  # [B, H4, W4]
+    cost_diff = (got["cost"] - one["cost"]).abs().amax(dim=1)[same]
+    disp_diff = (got["disp"] - one["disp"]).abs()
+    fp32 = (torch.cat([r["eval_fp32"] for r in ranks], 1).double() - one_fp32.double()).abs()
+    fp32 = fp32[:, :, 32:]
+    fp32_1024 = (torch.cat([r["eval_fp32_1024"] for r in ranks], 1).double()
+                 - one_fp32_1024_every.double()).abs()[:, :, 32:]
+    bf16_split = float((got["disp"].double() - one["disp"].double()).abs()[:, :, 32:].median())
+    bf16_level = float((one["disp"].double() - one_fp32_1024.double()).abs()[:, :, 32:].median())
+    bands = boundary_bands(same, same.shape[1] // SPACE, SPACE_BAND_ROWS)
+    per_request = [{k: v // SPACE_TIMED for k, v in e["launches"].items()} for e in ev]
+    t1024 = [r["train_1024"] for r in ranks]
+    res["eval"] = dict(
+        size=1024, dtype="bfloat16", note="two processes share one card; gloo stages the "
+        "halos and reductions through the host", ms_per_pair=[e["ms"] for e in ev],
+        ms_per_pair_median=[statistics.median(e["ms"]) for e in ev], launches=per_request,
+        rows_per_request=[{k: v // SPACE_TIMED for k, v in e["rows"].items()} for e in ev],
+        label_max_rel=max_rel(got["label"], one["label"]),
+        att_max_rel=max_rel(got["att"], one["att"]),
+        cost_max_rel_same_topk=float(cost_diff.max() / one["cost"].abs().max()),
+        label_argmax_equal=float((got["label"].argmax(-1) == one["label"].argmax(-1))
+                                 .double().mean()),
+        same_topk_share=float(same.double().mean()),
+        disp_median_abs_px=float(disp_diff.median()),
+        disp_max_abs_px_same_topk=float(disp_diff[same.repeat_interleave(4, 1)
+                                                  .repeat_interleave(4, 2)].max()),
+        peak_bytes=[e["records"]["peak_bytes"] for e in ev], one_process_peak_bytes=one[
+            "peak_bytes"], one_process_path_peak_bytes=path["max_memory_allocated_bytes"],
+        fp32_256=dict(median=float(fp32.median()), max=float(fp32.max())),
+        fp32_1024_every_plane=dict(median=float(fp32_1024.median()),
+                                   max=float(fp32_1024.max())),
+        disp_median_abs_px_cols32=bf16_split, one_process_bf16_vs_fp32_median_px=bf16_level,
+        topk_differs_by_band=bands)
+    res["train_1024"] = dict(
+        size=1024, batch=TRAIN_BATCH, dtype="bfloat16", ms=[t["ms"] for t in t1024],
+        peak_bytes=[t["peak_bytes"] for t in t1024],
+        one_process_peak_bytes=train["max_memory_allocated_bytes"],
+        launches=[t["launches"] for t in t1024], rows=[t["rows"] for t in t1024],
+        loss=[t["loss"] for t in t1024])
+    e = res["eval"]
+    if not (max(e["label_max_rel"], e["att_max_rel"]) <= BF16_REL
+            and e["cost_max_rel_same_topk"] <= SPACE_COST_REL
+            and e["same_topk_share"] >= SPACE_SAME_TOPK):
+        failures.append("the space=2 eval disagrees with the one-process run")
+    if any(p != EVAL_LAUNCHES for p in per_request) or any(
+            r != {"K2": 64, "K4": 0} for r in e["rows_per_request"]):
+        failures.append("space=2 eval launches or rows")
+    if not (fp32.median() <= FUSE_FP32_BOUNDS["median"] and fp32.max() <= FUSE_FP32_BOUNDS["max"]):
+        failures.append("the space=2 fp32 eval's disparity disagrees with one process's")
+    if not (fp32_1024.median() <= FUSE_FP32_BOUNDS["median"]
+            and fp32_1024.max() <= FUSE_FP32_BOUNDS["max"]):
+        failures.append("the space=2 fp32 1024x1024 eval's disparity disagrees with one "
+                        "process's")
+    if not bf16_split <= SPACE_BF16_LEVEL * bf16_level:
+        failures.append(f"the space=2 bf16 disparity is {bf16_split} px from one process's "
+                        f"(median), beyond {SPACE_BF16_LEVEL} x the bf16 level {bf16_level}")
+    if not bands["boundary"] <= bands["others_median"] + SPACE_BAND_EXCESS:
+        failures.append(f"the top-k choices differ from one process's in {bands['boundary']} "
+                        f"of the slab boundary's band, against {bands['others_median']} "
+                        "elsewhere")
+    if any(t["launches"] != TRAIN_LAUNCHES or t["rows"] != {"K2": 64, "K4": 64}
+           or not np.isfinite(t["loss"]) for t in t1024):
+        failures.append("the space=2 1024x1024 train step's launches, rows or loss")
+    # (c)
+    space_run = f"{tmp}/space_run"
+    sd = [torch.load(f"{tmp}/{run}/checkpoint_000000.pt", weights_only=True)["model"]
+          for run in ("stage2", "space_run")]
+    moved = torch.cat([(sd[1][n] - p).abs().ravel() for n, p in sd[0].items()
+                       if "running_" not in n]) / agreement_cfg().optim.lr
+    cli = [r["cli"] for r in ranks]
+    logs = []
+    for run in ("stage2", "space_run"):
+        with open(f"{tmp}/{run}/log.log") as f:
+            logs.append(f.read())
+    first_loss = [float(re.search(r"Epoch 0/1, Iter 0/\d+, loss = (\S+),", text).group(1))
+                  for text in logs]
+    # one process's eval of the space run's checkpoint, and its first batch
+    one_cfg, _ = cli_train.parse_config(cli_argv[:cli_argv.index("--space-parallel")])
+    trainer = Trainer(one_cfg, device="cuda")
+    trainer.state = ckpt.restore_checkpoint(space_run, init_state(one_cfg))
+    want_eval = trainer.evaluate()
+    trainer.train_loader.set_epoch(0)
+    want_rows = trainer.train_loader._indices().tolist()
+    want_batch = next(iter(trainer.train_loader))
+    del trainer
+    batch_equal = all(
+        set(c["first_batch"]) == {"left", "right", "disparity", "disparity_4", "label"}
+        and all(torch.equal(v, row_slab(torch.from_numpy(np.asarray(want_batch[k])), m))
+                for k, v in c["first_batch"].items())
+        for c, m in zip(cli, meshes))
+    eval_rel = {k: max(abs(c["history"][-1]["eval"].get(k, np.inf) - v) / max(abs(v), 1.0)
+                    for c in cli)
+                for k, v in want_eval.items()}
+    res["cli"] = dict(
+        ms_per_step=[[ms for kind, ms, _ in c["steps"] if kind == "train"] for c in cli],
+        param_diff_over_lr_max=float(moved.max()), param_diff_over_lr_median=float(moved.median()),
+        steps=[ln for ln in logs[1].splitlines() if ln.startswith("Epoch 0/1, Iter")],
+        one_steps=[ln for ln in logs[0].splitlines() if ln.startswith("Epoch 0/1, Iter")],
+        first_loss_rel=abs(first_loss[1] - first_loss[0]) / abs(first_loss[0]),
+        first_batch_equal=batch_equal, eval=cli[0]["history"][-1]["eval"],
+        one_process_eval_of_checkpoint=want_eval, eval_rel=eval_rel,
+        eval_rel_max=max(eval_rel.values()), one_epoch_eval=logged_eval(logs[0]))
+    for c in cli:
+        for kind, want_l in (("train", TRAIN_LAUNCHES), ("eval", EVAL_LAUNCHES)):
+            got_l = [l for k, _, l in c["steps"] if k == kind]
+            if not got_l or any(l != want_l for l in got_l):
+                failures.append(f"space=2 CLI {kind} launches {got_l}")
+    if any(c["rows"] != want_rows or c["shard"] != (0, 1) for c in cli) or not batch_equal:
+        failures.append(f"space=2 CLI rows {[(c['shard'], c['rows']) for c in cli]}, one "
+                        f"process's {want_rows}; first batch cut by height equal: {batch_equal}")
+    if sd[0].keys() != sd[1].keys():
+        failures.append("the space=2 CLI checkpoint's leaves differ from one process's")
+    if not res["cli"]["first_loss_rel"] <= SPACE_CLI_LOSS_REL:
+        failures.append(f"the space=2 CLI first loss {first_loss[1]} against {first_loss[0]}")
+    if any(set(c["history"][-1]["eval"]) != set(want_eval) for c in cli) or not all(
+            np.isfinite(v) and v <= SPACE_CLI_EVAL_REL for v in eval_rel.values()):
+        failures.append(f"the space=2 CLI eval against one process's of its checkpoint: "
+                        f"{eval_rel}")
+    log("space_parallel", json.dumps(res))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
 def fp32_without_tf32() -> None:
     """fp32 convs and matmuls in fp32, not TF32 (cuDNN's default), so that
     the fp32 comparisons see summation order only."""
@@ -1604,9 +2032,9 @@ def fp32_without_tf32() -> None:
 
 
 def worker(argv: list[str]) -> int:
-    """``--worker dp-step OUT``, ``--worker dp-cli OUT CLI-ARGS...`` or
-    ``--worker disp OUT CLI-ARGS...``: one process of the data- or
-    disp-parallel phase."""
+    """``--worker dp-step OUT``, ``--worker dp-cli OUT CLI-ARGS...``,
+    ``--worker disp OUT CLI-ARGS...`` or ``--worker space OUT CLI-ARGS...``:
+    one process of the data-, disp- or space-parallel phase."""
     if not torch.cuda.is_available():
         log("no CUDA device")
         return 1
@@ -1616,6 +2044,8 @@ def worker(argv: list[str]) -> int:
         dp_step_worker(out)
     elif kind == "disp":
         disp_worker(out, argv[2:])
+    elif kind == "space":
+        space_worker(out, argv[2:])
     else:
         dp_cli_worker(out, argv[2:])
     return 0
@@ -1667,7 +2097,9 @@ def main() -> int:
         run_data_parallel(ops, tmp)
         t = phase("data parallel", t)
         run_disp_parallel(ops, tmp)
-        phase("disp parallel", t)
+        t = phase("disp parallel", t)
+        run_space_parallel(ops, tmp, path, train)
+        phase("space parallel", t)
 
     kernels = []
     meta = {

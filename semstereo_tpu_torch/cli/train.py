@@ -16,9 +16,15 @@ N`` splits the cost volumes' planes over groups of N consecutive processes
 
     torchrun --nproc-per-node 2 -m semstereo_tpu_torch.cli.train --preset ... --disp-parallel 2
 
+``--space-parallel N`` splits the images' rows over groups of N
+consecutive processes (world = data x space; ``--data-parallel -1`` is
+world / N; each process computes its slab of rows of every layer, and
+``--disp-parallel`` must then stay 1):
+
+    torchrun --nproc-per-node 2 -m semstereo_tpu_torch.cli.train --preset ... --space-parallel 2
+
 ``--remat`` and ``--pretrained-backbone`` are the model's ``remat`` and
-``pretrained_backbone``.  Spatial parallelism is not ported:
-``--space-parallel`` above 1 is refused.
+``pretrained_backbone``.
 """
 
 from __future__ import annotations
@@ -79,18 +85,18 @@ def parse_config(argv=None) -> tuple[TrainConfig, argparse.Namespace]:
     p.add_argument("--pretrained-backbone",
                    help="timm mobilevitv2_100 state_dict (.pth) loaded into the backbone")
     p.add_argument("--data-parallel", type=int, default=-1,
-                   help="data-parallel groups (-1: the processes started / --disp-parallel)")
+                   help="data-parallel groups (-1: the processes started / (--disp-parallel "
+                   "x --space-parallel))")
     p.add_argument("--disp-parallel", type=int, default=1,
                    help="processes that split the cost volumes' planes")
-    p.add_argument("--space-parallel", type=int, default=1, help="not ported; must be 1")
+    p.add_argument("--space-parallel", type=int, default=1,
+                   help="processes that split the images' rows")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     args = p.parse_args(argv)
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if args.space_parallel != 1:
-        p.error("--space-parallel is not ported yet; spatial parallelism is the next module "
-                "of ROADMAP.md, section 1")
     try:
-        check_parallel(ParallelConfig(data=args.data_parallel, disp=args.disp_parallel), world)
+        check_parallel(ParallelConfig(data=args.data_parallel, disp=args.disp_parallel,
+                                      space=args.space_parallel), world)
     except ValueError as e:
         p.error(str(e))
 
@@ -108,7 +114,7 @@ def parse_config(argv=None) -> tuple[TrainConfig, argparse.Namespace]:
             att_window2=window(args.att_window2), pretrained_backbone=args.pretrained_backbone,
             remat=True if args.remat == "full" else args.remat)),
         parallel=dataclasses.replace(cfg.parallel, data=args.data_parallel,
-                                     disp=args.disp_parallel),
+                                     disp=args.disp_parallel, space=args.space_parallel),
         resume=args.resume,
         **overrides(logdir=args.logdir, loadckpt=args.loadckpt, seed=args.seed,
                     save_freq=args.save_freq, compute_dtype=args.compute_dtype),

@@ -1,5 +1,6 @@
 """Configuration of the port: a copy of what the model, the train step,
-the data layer, the trainer and data and disparity parallelism read from
+the data layer, the trainer and data, disparity and spatial parallelism
+read from
 ``semstereo_tpu.config`` (the port
 keeps its own so that it imports nothing of the JAX package).
 
@@ -85,7 +86,7 @@ class OptimConfig:
 class ParallelConfig:
     data: int = -1  # data-parallel processes; -1: the world size
     disp: int = 1  # processes that split the cost volumes' planes (parallel.make_mesh)
-    space: int = 1  # height-tile sharding (not ported; must stay 1)
+    space: int = 1  # processes that split the images' rows (parallel.make_mesh)
     # BatchNorm statistics over the global batch (all-reduced across the
     # data-parallel processes), as GSPMD gives the JAX package.
     sync_bn: bool = True

@@ -6,8 +6,11 @@ The disparity metrics are per-image masked means averaged over the valid
 images of the batch; an image is valid when its mask covers at least 10 %
 of its pixels with gt > 0; under data parallelism the count of valid
 images is summed over the processes, so each process's value is its share
-of the global-batch metric (``parallel.py``).  The confusion matrix is a
-one-hot product on the device, over the process's rows.
+of the global-batch metric (``parallel.py``).  On row slabs (``rows``, a
+mesh whose space axis splits the images) the per-image sums and counts
+are summed over the space group first, so every process of the group holds
+each image's value.  The confusion matrix is a one-hot product on the
+device, over the process's rows.
 """
 
 from __future__ import annotations
@@ -16,19 +19,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from semstereo_tpu_torch.parallel import global_sum
+from semstereo_tpu_torch.parallel import global_sum, space_sum
 
 
-def _per_image(metric_elem, mask):
+def _per_image(metric_elem, mask, rows=None):
     """Masked per-image mean of an elementwise metric: [B,H,W] -> [B]."""
     m = mask.float()
-    return torch.sum(metric_elem * m, dim=(1, 2)) / torch.clamp_min(torch.sum(m, dim=(1, 2)), 1.0)
+    num, den = torch.sum(metric_elem * m, dim=(1, 2)), torch.sum(m, dim=(1, 2))
+    if rows is not None:
+        num, den = space_sum(torch.stack([num, den]), rows).unbind()
+    return num / torch.clamp_min(den, 1.0)
 
 
-def _image_validity(d_gt, mask):
+def _image_validity(d_gt, mask, rows=None):
     """1.0 for images whose valid-mask coverage is >= 10 % of their gt > 0 pixels."""
-    m = torch.mean(mask.float(), dim=(1, 2))
-    g = torch.mean((d_gt > 0).float(), dim=(1, 2))
+    if rows is None:
+        m = torch.mean(mask.float(), dim=(1, 2))
+        g = torch.mean((d_gt > 0).float(), dim=(1, 2))
+    else:  # the ratio of the means is the ratio of the whole image's counts
+        m, g = space_sum(torch.stack([torch.sum(mask.float(), dim=(1, 2)),
+                                      torch.sum((d_gt > 0).float(), dim=(1, 2))]), rows).unbind()
     return (m / torch.clamp_min(g, 1e-12) >= 0.1).float()
 
 
@@ -37,23 +47,25 @@ def _batch_mean(per_image_vals, validity):
             / torch.clamp_min(global_sum(torch.sum(validity)), 1.0))
 
 
-def epe_metric(d_est, d_gt, mask):
+def _metric(elem, d_gt, mask, rows):
+    return _batch_mean(_per_image(elem, mask, rows), _image_validity(d_gt, mask, rows))
+
+
+def epe_metric(d_est, d_gt, mask, rows=None):
     """Masked mean absolute error."""
-    err = torch.abs(d_est - d_gt)
-    return _batch_mean(_per_image(err, mask), _image_validity(d_gt, mask))
+    return _metric(torch.abs(d_est - d_gt), d_gt, mask, rows)
 
 
-def d1_metric(d_est, d_gt, mask):
+def d1_metric(d_est, d_gt, mask, rows=None):
     """Share of pixels with error > 3 px and > 5 % of |gt|."""
     err = torch.abs(d_est - d_gt)
     bad = (err > 3.0) & (err / torch.clamp_min(torch.abs(d_gt), 1e-12) > 0.05)
-    return _batch_mean(_per_image(bad.float(), mask), _image_validity(d_gt, mask))
+    return _metric(bad.float(), d_gt, mask, rows)
 
 
-def thres_metric(d_est, d_gt, mask, thres: float):
+def thres_metric(d_est, d_gt, mask, thres: float, rows=None):
     """Share of pixels with error > ``thres`` px."""
-    bad = (torch.abs(d_est - d_gt) > thres).float()
-    return _batch_mean(_per_image(bad, mask), _image_validity(d_gt, mask))
+    return _metric((torch.abs(d_est - d_gt) > thres).float(), d_gt, mask, rows)
 
 
 def confusion_matrix(logits, labels, num_classes: int):

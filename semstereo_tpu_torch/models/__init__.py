@@ -29,8 +29,10 @@ def build_model(cfg: ModelConfig = ModelConfig(), device="cuda", dtype=torch.flo
     ``seed``.  ``fuse_views`` (eval only; None is the two-pass front end)
     is a model attribute, as in the JAX package, not a config field.  With
     a ``mesh`` (``parallel.make_mesh``) whose disp axis is above 1, the
-    model splits its cost volumes' planes over the disp group; every
-    process of the group builds the same weights."""
+    model splits its cost volumes' planes over the disp group; with one
+    whose space axis is above 1, it takes and returns row slabs of the
+    images over the space group.  Every process of a group builds the same
+    weights."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' to run on the CPU")

@@ -41,6 +41,21 @@ chooses the top-k planes and broadcasts the choice (a near-tie rounded
 otherwise in one process would tear the slabs apart).  Stage 2: each
 process builds its slab of the top-k concat volume, runs ``concat_stem``
 to ``classif`` on it and gathers ``cost`` before the top-k regression.
+
+Spatial parallelism (``mesh`` with a space axis above 1, the JAX package's
+``shard_spatial``): ``left`` and ``right`` are this process's slab of the
+images' rows, and every layer computes its rows of its output, down to the
+disparity and the label logits, which are the process's rows of the
+whole.  ``layers.split_rows`` gives every submodule the mesh, so each conv
+and deconv takes its halo rows, GroupNorm and the separable attention
+their statistics over the space group, and the hourglass attention keeps
+to its slab's windows.  In this module: the bilinear and trilinear
+upsamplings and the 5-tap propagations take their halos
+(``ops.resize``, ``ops.propagation``).  The cosine volume (K2 and its VJP
+K4) correlates along W only, so each process builds it from its rows, with
+no halo; ``warp_strength``, ``disparity_warp``, the soft-argmin, the
+variance and the top-k choices are per row or per pixel.  The forward
+checks the slab's rows against ``parallel.check_space_rows``.
 """
 
 from __future__ import annotations
@@ -64,10 +79,11 @@ from semstereo_tpu_torch.nn import (
     SegmentHead,
     SSRUpsample,
 )
-from semstereo_tpu_torch.nn.layers import conv_cl, recomputing
+from semstereo_tpu_torch.nn.layers import conv_cl, recomputing, rows_of, split_rows
 from semstereo_tpu_torch.parallel import (
     broadcast_from_group,
     check_disp_planes,
+    check_space_rows,
     gather_planes,
     volume_planes,
 )
@@ -176,18 +192,28 @@ class SemStereo(nn.Module):
         self.refine_topk = refine_topk
         self.remat = remat_components(remat)
         self.fuse_views = fuse_views
+        self.att_window1, self.att_window2 = tuple(att_window1), tuple(att_window2)
         # the plane split (module docstring); not a submodule or a buffer
         self.mesh = mesh if mesh is not None and mesh.split else None
         if self.mesh is not None:
             check_disp_planes(volume_planes(maxdisp, symmetric, topk, att_weights_only),
                               mesh.disp)
+        if mesh is not None and mesh.split and mesh.rows:
+            raise ValueError(f"disp={mesh.disp} with space={mesh.space}: disparity and spatial "
+                             "parallelism together are not ported yet")
+        self._build()
+        split_rows(self, mesh)
+
+    def _build(self):
+        """The submodules (reference state-dict names)."""
+        num_classes, att_weights_only = self.num_classes, self.att_weights_only
 
         self.feature = MobileViTv2Backbone()
         self.feature_up = FeatUp()
-        if seg_if:
+        if self.seg_if:
             self.head_l = SegmentHead(CHANS[0], CHANS[0] // 4, num_classes)
             self.head_r = SegmentHead(CHANS[0], CHANS[0] // 4, num_classes)
-        if not stereo_if:
+        if not self.stereo_if:
             return
         for i in range(5):
             self.add_module(f"chal_{i}", ConvBn(CHANS[i], CHANS2[i], 1, bias=True))
@@ -200,7 +226,7 @@ class SemStereo(nn.Module):
         self.patch = nn.Conv3d(groups, groups, (1, 3, 3), 1, (0, 1, 1), groups=groups,
                                bias=False)
         self.corr_feature_att_8 = ChannelAtt(groups, CHANS2[2])
-        self.hourglass_att = Hourglass3D(32, att_window1)
+        self.hourglass_att = Hourglass3D(32, self.att_window1)
         self.classif_att_ = Classifier3D(32)
         self.gamma = nn.Parameter(torch.zeros(1))
         self.beta = nn.Parameter(torch.full((1,), 2.0))
@@ -209,7 +235,7 @@ class SemStereo(nn.Module):
             self.concat_feature = _ConcatFeature()
             self.concat_stem = BasicConv(CHANS2[1] // 2, CHANS2[1] // 4, 3, 1, 1, dims=3)
             self.concat_feature_att_4 = ChannelAtt(CHANS2[1] // 4, CHANS2[1])
-            self.hourglass = Hourglass3D(32, att_window2)
+            self.hourglass = Hourglass3D(32, self.att_window2)
             self.classif = Classifier3D(32)
 
     def _chal(self, i, x):
@@ -234,6 +260,9 @@ class SemStereo(nn.Module):
 
     def _forward(self, left, right):
         train = self.training
+        rows = rows_of(self)
+        if rows is not None:
+            check_space_rows(left.shape[1] * rows.space, rows.space, self)
         b = left.shape[0]
         fuse = bool(self.fuse_views) and not train
         if fuse:
@@ -284,14 +313,14 @@ class SemStereo(nn.Module):
 
         d4 = self.maxdisp // 4 * (2 if self.symmetric else 1)
         h4, w4 = left.shape[1] // 4, left.shape[2] // 4
-        att_weights = resize_trilinear(cost_att, (d4, h4, w4))[..., 0]  # [B, D4, H4, W4]
+        att_weights = resize_trilinear(cost_att, (d4, h4, w4), rows)[..., 0]  # [B, D4, H4, W4]
         att_prob_full = torch.softmax(att_weights, dim=1)
         pred_att = disparity_regression(att_prob_full, self.symmetric)
 
         var = disparity_variance(att_prob_full, pred_att, self.symmetric)
         conf = torch.sigmoid(self.beta[0] + self.gamma[0] * var)
-        conf_samples = propagate5(conf)
-        disp_samples = propagate5(pred_att)
+        conf_samples = propagate5(conf, rows)
+        disp_samples = propagate5(pred_att, rows)
 
         if self.symmetric:
             min_off, max_off = -(d4 // 2), d4 // 2
@@ -300,7 +329,7 @@ class SemStereo(nn.Module):
         strength = warp_strength(fl[1], fr1, disp_samples, max_off, min_off)
         strength = torch.softmax(strength * conf_samples, dim=1)
 
-        att_weights = propagate5_volume(att_weights)  # [B, 5, D4, H4, W4]
+        att_weights = propagate5_volume(att_weights, rows)  # [B, 5, D4, H4, W4]
         att_weights = torch.sum(att_weights * strength[:, :, None], dim=1)
 
         k = min(self.topk, d4)

@@ -12,6 +12,12 @@ planes at /8, 6 of 6 at /4), so no slab holds one: the planes are gathered
 over the disp group (``parallel.gather_planes``, whose backward sums the
 cotangent over the group), every process attends over the whole volume and
 keeps its slab.
+
+On row slabs (``layers.split_rows``) the windows stay local: a slab of the
+bottleneck holds a whole number of windows along H
+(``parallel.check_space_rows`` refuses any other split), so each process
+attends within its own windows and no window spans two slabs.  The port
+does not gather the bottleneck along H.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from semstereo_tpu_torch.nn.layers import rows_of
 from semstereo_tpu_torch.parallel import gather_planes
 
 NUM_HEADS = 16
@@ -47,6 +54,9 @@ class WindowedAttention3D(nn.Module):
         b, d0, h0, w0, c = x.shape
         bd, bh, bw = self.window
         pad_d, pad_b, pad_r = (-d0) % bd, (-h0) % bh, (-w0) % bw
+        if pad_b and rows_of(self) is not None:
+            raise ValueError(f"a slab of {h0} bottleneck rows does not hold whole attention "
+                             f"windows of {bh} rows (parallel.check_space_rows)")
         d, h, w = d0 + pad_d, h0 + pad_b, w0 + pad_r
         any_pad = bool(pad_d or pad_b or pad_r)
         if any_pad:

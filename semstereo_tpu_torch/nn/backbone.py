@@ -7,6 +7,19 @@ inside them timm's byobnet names (``conv1_1x1``/``conv2_kxk``/``conv3_1x1``,
 ``conv_kxk``/``conv_1x1``/``transformer.N``/``norm``/``conv_proj``).  The
 1x1 convs of the transformer are channels-last matmuls on their Conv2d
 weights.  GroupNorm(1) uses eps 1e-6, as flax's GroupNorm in the JAX package.
+
+On row slabs (``layers.split_rows``): the 3x3 convs take their halos
+(``layers.conv_cl``); GroupNorm's statistics span the image, so it takes
+them over the space group in two passes (the per-image sum, then the
+squared deviations from the global mean, over the slabs' equal counts),
+each a differentiable all-reduce; the separable attention's softmax runs over all the image's
+patches, with the global max (no gradient: the softmax does not depend on
+it), the global sum of the exponentials and the global sum of the
+score-weighted keys (differentiable).  Both compute in fp32 and round to
+the input's dtype where one process's ``var_mean``, ``softmax`` and
+``k * scores`` round, so that a bf16 split follows one process closely.  A MobileViTv2 block's slab must hold an even
+number of rows, so that no slab but the last would pad
+(``parallel.check_space_rows`` refuses the others).
 """
 
 from __future__ import annotations
@@ -15,7 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from semstereo_tpu_torch.nn.layers import BatchNorm, conv_cl
+from semstereo_tpu_torch.nn.layers import BatchNorm, conv_cl, rows_of
+from semstereo_tpu_torch.parallel import space_max, space_sum
 
 GN_EPS = 1e-6
 
@@ -36,7 +50,16 @@ class GroupNorm1(nn.Module):
         # One group spans millions of elements: a full-grid reduction for the
         # statistics, then one fused pass y = x * a + b with per-channel a, b
         # (layer_norm and group_norm reduce each group in a single block).
-        var, mean = torch.var_mean(x, dim=tuple(range(1, x.dim())), correction=0, keepdim=True)
+        dims = tuple(range(1, x.dim()))
+        rows = rows_of(self)
+        if rows is None:
+            var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
+        else:  # in fp32 over the equal slabs, rounded to x's dtype as var_mean's results are
+            xf = x.float()
+            n = xf[0].numel() * rows.space
+            mean = (space_sum(xf.sum(dims), rows) / n).reshape(-1, *[1] * len(dims))
+            var = (space_sum((xf - mean).square().sum(dims), rows) / n).reshape(mean.shape)
+            mean, var = mean.to(x.dtype), var.to(x.dtype)
         a = torch.rsqrt(var.float() + GN_EPS) * self.weight.float()
         b = self.bias.float() - mean.float() * a
         return torch.addcmul(b.to(x.dtype), x, a.to(x.dtype))
@@ -83,8 +106,15 @@ class LinearSelfAttention(nn.Module):
     def forward(self, x):
         qkv = _pointwise(self.qkv_proj, x)
         q, k, v = torch.split(qkv, [1, self.dim, self.dim], dim=-1)
-        scores = torch.softmax(q, dim=2)
-        context = torch.sum(k * scores, dim=2, keepdim=True)
+        rows = rows_of(self)
+        if rows is None:
+            scores = torch.softmax(q, dim=2)
+            context = torch.sum(k * scores, dim=2, keepdim=True)
+        else:  # the softmax over every patch of the image, rounded where one process's is
+            qf = q.float()
+            e = torch.exp(qf - space_max(qf.amax(dim=2, keepdim=True), rows))
+            scores = (e / space_sum(e.sum(2, keepdim=True), rows)).to(q.dtype)
+            context = space_sum((k * scores).float().sum(2, keepdim=True), rows).to(k.dtype)
         return _pointwise(self.out_proj, torch.relu(v) * context)
 
 
@@ -119,6 +149,9 @@ class MobileVitV2Block(nn.Module):
         ph, pw = self.patch
         y = _pointwise(self.conv_1x1, self.conv_kxk(x))
         pad_b, pad_r = (-h0) % ph, (-w0) % pw
+        if pad_b and rows_of(self) is not None:
+            raise ValueError(f"a slab of {h0} rows: the 2x2 patches need an even count "
+                             "(parallel.check_space_rows)")
         if pad_b or pad_r:
             y = F.pad(y, (0, 0, 0, pad_r, 0, pad_b))
         h, w = h0 + pad_b, w0 + pad_r

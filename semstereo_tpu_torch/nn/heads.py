@@ -1,13 +1,15 @@
 """Segmentation head, semantic/feature channel attention on cost volumes and
 Semantic Super-Resolution disparity upsampling (counterpart of
-``semstereo_tpu/nn/heads.py``), channels-last."""
+``semstereo_tpu/nn/heads.py``), channels-last.  On row slabs
+(``layers.split_rows``) the 3x3 convs and the bilinear upsamplings take
+their halos (``layers.conv_cl``, ``ops.resize``); the rest is per pixel."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-from semstereo_tpu_torch.nn.layers import BasicConv, BatchNorm, conv_cl
+from semstereo_tpu_torch.nn.layers import BasicConv, BatchNorm, conv_cl, rows_of
 from semstereo_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -21,7 +23,7 @@ class SegmentHead(nn.Module):
 
     def forward(self, x):
         out = conv_cl(self.conv2, self.conv1(x))
-        return resize_bilinear(out, (2 * x.shape[1], 2 * x.shape[2]))
+        return resize_bilinear(out, (2 * x.shape[1], 2 * x.shape[2]), rows_of(self))
 
 
 class ChannelAtt(nn.Module):
@@ -61,7 +63,7 @@ class SSRUpsample(nn.Module):
         # depth_low [B, h, w, 1]; spx_weights, pred_label [B, 4h, 4w, nc]
         _, h, w, _ = depth_low.shape
         label_prob = torch.softmax(pred_label, dim=-1)
-        depth_up = resize_bilinear(depth_low, (4 * h, 4 * w))
+        depth_up = resize_bilinear(depth_low, (4 * h, 4 * w), rows_of(self))
         d = self.conv[2](conv_cl(self.conv[1], self.conv[0](depth_up)))
         p = torch.sigmoid(self.conv1[1](conv_cl(self.conv1[0], label_prob * spx_weights)))
         p = torch.sigmoid(self.conv2[1](conv_cl(self.conv2[0], p * spx_weights)))

@@ -6,7 +6,10 @@ Volumes are [B, D, H, W, C].  conv1-conv4 and both classifier convs are
 k3 s2 p1 op1 deconvs and 1x1x1 redirs stay on ``F.conv*``.  Given a
 ``mesh`` that splits the volume, x and the output are this process's slabs
 of planes: each conv reads its neighbours' edge planes (``nn/layers.py``),
-and the attention gathers the bottleneck whole (``nn/attention.py``).
+and the attention gathers the bottleneck whole (``nn/attention.py``).  On
+row slabs (``layers.split_rows``) each conv and deconv reads its
+neighbours' edge rows along H (axis 2), and the attention keeps to the
+slab's windows.
 """
 
 from __future__ import annotations

@@ -18,8 +18,9 @@ kernel; every other conv and deconv stays on ``F.conv*``.
   input's dtype, and the running statistics moved 0.1 of the way to the
   batch mean and the *biased* batch variance.  Under a process group of
   more than one process the batch is the global one: the per-channel sum,
-  sum of squared deviations and count are all-reduced (differentiably), as
-  GSPMD gives the JAX package.  A forward that ``torch.utils.checkpoint``
+  sum of squared deviations and count are all-reduced, and so are the
+  backward's two per-channel sums (``_GlobalBatchNorm``), as GSPMD gives
+  the JAX package.  A forward that ``torch.utils.checkpoint``
   recomputes for the backward (``recomputing()``) leaves the running
   statistics alone, as flax's ``nn.remat`` moves them once.  The volume
   convs run in the differentiable ``ops.conv3d`` (no affine), then
@@ -28,7 +29,7 @@ kernel; every other conv and deconv stays on ``F.conv*``.
 * Plane slabs: given a ``mesh`` whose disp axis splits the volume, a 3-D
   conv takes its input as this process's slab of planes and returns its
   slab of the output planes.  A conv whose kernel spans depth reads the
-  neighbouring slabs' edge planes (``parallel.halo_pad``, zeros at the
+  neighbouring slabs' edge planes (``parallel.halo_rows``, zeros at the
   volume's ends) and keeps the output planes on the global grid: the
   3x3x3 pad-1 conv runs the kernel on [below, slab, above] at stride 1 and
   on [0, below, slab] at stride 2, the k3 s2 p1 op1 deconv on [slab,
@@ -36,6 +37,26 @@ kernel; every other conv and deconv stays on ``F.conv*``.
   1, 1 at stride 2, 2 for the deconv).  A conv of kernel depth 1 takes the
   slab as it is.  BatchNorm's statistics are global over the processes, so
   a slab's counts add up to the volume's.
+* Row slabs: on a module that ``split_rows`` gave a mesh whose space axis
+  splits the images, every conv takes this process's slab of rows (axis 1
+  of [B, H, W, C], axis 2 of [B, D, H, W, C]) and returns its slab of the
+  output rows, by the same rules along H: a conv of kernel height k,
+  stride 1 and padding p reads p rows below and k - 1 - p above (the 3x3
+  convs, the depthwise 3x3, the 3x3x3 volume convs and the (1, 3, 3)
+  patch conv: one each side); the k3 s2 p1 conv runs on [0, below, slab];
+  the k4 s2 p1 deconv on [below, slab, above], keeping output rows 2 ..
+  2n + 1; the k3 s2 p1 op1 volume deconv on [slab, above].  The halo rows
+  are zeros past the image, as the conv's own padding.  1x1 convs take the
+  slab as it is.
+* Both slabs take one path: the volume convs go to K1 (and their backward
+  to K3) on the haloed slab, with the extra output planes or rows dropped.
+  The haloed conv is one autograd node (``_SlabConv``; the eval kernel
+  with its folded BN apart) that keeps the slab and its few halo rows for
+  the backward, not the haloed copy, which it builds again there: a copy
+  kept beside the slab, which the layer before keeps too, would hold as
+  much memory as the slab split saves.  BatchNorm's statistics over the
+  world are those of the whole volume or images, as every process holds
+  distinct planes or rows.
 """
 
 from __future__ import annotations
@@ -45,12 +66,12 @@ import threading
 import weakref
 
 import torch
-import torch.distributed.nn.functional as dist_fn
+import torch.distributed as dist
 import torch.nn as nn
 
-from semstereo_tpu_torch.parallel import halo_pad, process_count
+from semstereo_tpu_torch.parallel import add_halo_grads, halo_rows, process_count
 
-from semstereo_tpu_torch.ops.conv3d import conv3d, conv3d_bn_act
+from semstereo_tpu_torch.ops.conv3d import conv3d, conv3d_backward, conv3d_bn_act, conv3d_forward
 from semstereo_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -134,25 +155,150 @@ class BatchNorm(nn.Module):
         return y
 
     def _train_global(self, x):
-        """(y, mean, biased variance) over the rows of every process: two
-        differentiable all-reduces, of the per-channel sum with the count,
-        then of the squared deviations from the global mean."""
-        xf = x.reshape(-1, x.shape[-1]).float()
-        count = torch.full((1,), float(xf.shape[0]), dtype=xf.dtype, device=xf.device)
-        sums = dist_fn.all_reduce(torch.cat([xf.sum(0), count]))
-        n = sums[-1].detach()
+        """(y, mean, biased variance) over the rows of every process
+        (``_GlobalBatchNorm``)."""
+        y, mean, var = _GlobalBatchNorm.apply(x.reshape(-1, x.shape[-1]), self.weight,
+                                              self.bias, self.eps)
+        return y.reshape(x.shape), mean, var
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train BatchNorm of x [N, C] over the rows of every process, as one
+    node: the forward all-reduces the per-channel sum with the count, then
+    the squared deviations from the global mean, and normalises in fp32;
+    it keeps x in its own dtype and the per-channel statistics.  The
+    backward all-reduces the two per-channel sums of the standard formula,
+    dx = w / sigma (g - mean(g) - xhat mean(g xhat)) over the global batch
+    (each process holds its rows' full cotangent), and returns the
+    parameters' gradients of this process's rows, which the gradient
+    all-reduce sums."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        xf = x.float()
+        sums = torch.cat([xf.sum(0), torch.full((1,), float(xf.shape[0]), device=xf.device)])
+        dist.all_reduce(sums)
+        n = sums[-1]
         mean = sums[:-1] / n
-        var = dist_fn.all_reduce((xf - mean).square().sum(0)) / n
-        scale = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (xf - mean) * scale + self.bias.float()
-        return y.to(x.dtype).reshape(x.shape), mean, var
+        sq = (xf - mean).square().sum(0)
+        dist.all_reduce(sq)
+        var = sq / n
+        invstd = torch.rsqrt(var + eps)
+        y = ((xf - mean) * (invstd * weight.float()) + bias.float()).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        g = gy.float()
+        xhat = (x.float() - mean) * invstd
+        gb, gw = g.sum(0), (g * xhat).sum(0)
+        sums = torch.cat([gb, gw])
+        dist.all_reduce(sums)
+        c = gb.shape[0]
+        gx = (weight.float() * invstd) * (g - sums[:c] / n - xhat * (sums[c:] / n))
+        return gx.to(x.dtype), gw.to(weight.dtype), gb.to(weight.dtype), None
 
 
-def conv_cl(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Run a torch conv module (NC... layout) on a channels-last tensor."""
+def split_rows(module: nn.Module, mesh) -> nn.Module:
+    """Gives ``module`` and every submodule the mesh whose space axis splits
+    the rows (``None`` unless ``mesh.space`` is above 1); see the module
+    docstring.  The mesh is a plain attribute, not a submodule or a
+    buffer."""
+    rows = mesh if mesh is not None and mesh.rows else None
+    for m in module.modules():
+        m.__dict__["row_mesh"] = rows
+    return module
+
+
+def rows_of(module: nn.Module):
+    """The mesh that splits ``module``'s rows, or None."""
+    return module.__dict__.get("row_mesh")
+
+
+def _conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     nd = x.dim() - 2
     y = conv(x.permute(0, nd + 1, *range(1, nd + 1)))
     return y.permute(0, *range(2, nd + 2), 1)
+
+
+def conv_cl(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Run a torch conv module (NC... layout) on a channels-last tensor;
+    on the row slab of a module split by rows, with its halo."""
+    rows = rows_of(conv)
+    if rows is None or conv.kernel_size[-2] == 1:
+        return _conv(conv, x)
+    return _SlabConv.apply(x, conv.weight, conv.bias, conv, rows.space_part, x.dim() - 3)
+
+
+def _kernel_train(conv: nn.Module) -> bool:
+    """Whether the conv is a train-mode volume conv of the kernel (K1, K3)."""
+    return _is_k3_volume_conv(conv) and conv.training
+
+
+def _conv_nc(conv: nn.Module, x: torch.Tensor, weight, bias) -> torch.Tensor:
+    """The conv of a channels-last ``x`` with ``weight`` and ``bias``, as the
+    module computes it (``aten.convolution``), channels-last."""
+    nd = x.dim() - 2
+    y = torch.ops.aten.convolution(
+        x.permute(0, nd + 1, *range(1, nd + 1)), weight, bias, conv.stride, conv.padding,
+        conv.dilation, conv.transposed, conv.output_padding, conv.groups)
+    return y.permute(0, *range(2, nd + 2), 1)
+
+
+class _SlabConv(torch.autograd.Function):
+    """A conv on this process's slab ``x`` (channels-last) of planes or rows
+    along ``axis``, with its halo (``_slab_rule``), as one node: it keeps ``x`` and the halo rows, not the
+    haloed copy, and builds that again in the backward.  The train-mode
+    volume convs run K1 forward and K3 backward (``ops.conv3d``); the rest
+    ``aten.convolution`` and its backward.  The halo rows' cotangents go
+    back to their owners (``parallel.add_halo_grads``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, conv, part, axis):
+        front, below, above, keep = _slab_rule(conv, x.shape[axis], axis)
+        lo, hi = halo_rows(x, part, axis, below, above)
+        xp = _assemble(x, lo, hi, front, axis)
+        if _kernel_train(conv):
+            y = conv3d_forward(xp, weight, conv.stride[0])
+        else:
+            y = _conv_nc(conv, xp, weight, bias)
+        ctx.conv, ctx.part, ctx.axis, ctx.rule, ctx.full = conv, part, axis, (
+            front, below, above, keep), y.shape
+        ctx.save_for_backward(x, lo, hi, weight, bias)
+        return y.narrow(axis, *keep)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, lo, hi, weight, bias = ctx.saved_tensors
+        conv, axis = ctx.conv, ctx.axis
+        front, below, above, keep = ctx.rule
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        xp = _assemble(x, lo, hi, front, axis)
+        g = gy.new_zeros(ctx.full)
+        g.narrow(axis, *keep).copy_(gy)
+        gb = None
+        if _kernel_train(conv):
+            gxp, gw = conv3d_backward(xp, weight, g, conv.stride[0], need_x, need_w)
+        else:
+            nd = x.dim() - 2
+            nc = (0, nd + 1, *range(1, nd + 1))
+            gxp, gw, gb = torch.ops.aten.convolution_backward(
+                g.permute(*nc), xp.permute(*nc), weight,
+                None if bias is None else [bias.shape[0]], conv.stride, conv.padding,
+                conv.dilation, conv.transposed, conv.output_padding, conv.groups,
+                [need_x, need_w, need_b and bias is not None])
+            if gxp is not None:
+                gxp = gxp.permute(0, *range(2, nd + 2), 1)
+        gx = None
+        if need_x:
+            n = x.shape[axis]
+            gx = add_halo_grads(gxp.narrow(axis, front + below, n),
+                                gxp.narrow(axis, front, below),
+                                gxp.narrow(axis, front + below + n, above), ctx.part, axis)
+        return gx, gw, gb, None, None, None
 
 
 def _is_k3_volume_conv(conv: nn.Module) -> bool:
@@ -177,49 +323,71 @@ def kernel_operands(conv: nn.Conv3d, bn: BatchNorm | None):
     return w, ones, torch.zeros_like(ones)
 
 
-def _is_k3_s2_deconv(conv: nn.Module) -> bool:
-    """The hourglass's k3 s2 p1 op1 transposed volume conv."""
-    return (type(conv) is nn.ConvTranspose3d and conv.kernel_size == (3, 3, 3)
-            and conv.stride == (2, 2, 2) and conv.padding == (1, 1, 1)
-            and conv.output_padding == (1, 1, 1) and conv.dilation == (1, 1, 1)
-            and conv.groups == 1)
+def _slab_rule(conv: nn.Module, n: int, axis: int):
+    """(zero rows before the halo, halo rows below, halo rows above, (first,
+    count) of the output rows to keep) of the conv on a slab of ``n`` rows
+    along ``axis``; see the module docstring."""
+    j = axis - 1  # the axis's place in the kernel's spatial dims
+    k, s, p = conv.kernel_size[j], conv.stride[j], conv.padding[j]
+    if isinstance(conv, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
+        op = conv.output_padding[j]
+        if (k, s, p, op) == (4, 2, 1, 0):
+            return 0, 1, 1, (2, 2 * n)
+        if (k, s, p, op) == (3, 2, 1, 1):
+            return 0, 0, 1, (0, 2 * n)
+    elif s == 1 and 0 <= p <= k - 1:
+        return 0, p, k - 1 - p, (p, n)
+    elif (k, s, p) == (3, 2, 1) and n % 2 == 0:
+        return 1, 1, 0, (1, n // 2)
+    raise ValueError(f"no slab rule for {conv} on a slab of {n}")
 
 
-def _depth_halo(conv: nn.Module, x: torch.Tensor, mesh) -> tuple[torch.Tensor, slice]:
-    """(the input the conv takes for the slab ``x``, the output planes to
-    keep); see the module docstring."""
-    n = x.shape[1]
-    if _is_k3_volume_conv(conv) and conv.stride[0] == 1:
-        return halo_pad(x, mesh, below=True, above=True), slice(1, n + 1)
-    if _is_k3_volume_conv(conv):
-        xp = halo_pad(x, mesh, below=True, above=False)
-        return torch.cat([torch.zeros_like(xp[:, :1]), xp], dim=1), slice(1, n // 2 + 1)
-    if _is_k3_s2_deconv(conv):
-        return halo_pad(x, mesh, below=False, above=True), slice(0, 2 * n)
-    raise ValueError(f"no plane-slab rule for {conv}")
+def _assemble(x, lo, hi, front: int, axis: int) -> torch.Tensor:
+    """[front zero rows, lo, x, hi] along ``axis``."""
+    parts = [lo, x, hi]
+    if front:
+        parts.insert(0, torch.zeros_like(x.narrow(axis, 0, front)))
+    return torch.cat(parts, axis)
+
+
+def _halo(conv: nn.Module, x: torch.Tensor, part, axis: int):
+    """(the input the conv takes for the slab ``x`` along ``axis``, (first,
+    count) of the output rows to keep), without gradient: the eval kernel's
+    input, as ``_SlabConv`` builds it."""
+    front, below, above, keep = _slab_rule(conv, x.shape[axis], axis)
+    lo, hi = halo_rows(x, part, axis, below, above)
+    return _assemble(x, lo, hi, front, axis), keep
 
 
 def conv_bn_act(conv: nn.Module, bn: BatchNorm | None, x: torch.Tensor,
                 relu: bool, mesh=None) -> torch.Tensor:
     """[relu](bn(conv(x))); a 3x3x3 pad-1 volume conv goes to the kernel,
     with the BN folded in eval.  With a ``mesh`` that splits the volume,
-    x and the result are this process's plane slabs (module docstring)."""
-    keep = None
+    x and the result are this process's plane slabs; on a module split by
+    rows, its row slabs (module docstring)."""
+    rows = rows_of(conv)
+    split = None
     if mesh is not None and mesh.split and conv.kernel_size[0] > 1:
-        x, keep = _depth_halo(conv, x, mesh)
-    if not _is_k3_volume_conv(conv):
-        y = conv_cl(conv, x)
-    elif conv.training:
-        y = conv3d(x, conv.weight, conv.stride[0])
-    else:
+        split = mesh.disp_part, 1
+    elif rows is not None and conv.kernel_size[-2] > 1:
+        split = rows.space_part, x.dim() - 3
+    kernel = _is_k3_volume_conv(conv)
+    if kernel and not conv.training:  # the eval kernel, with the BN folded in
+        keep = None
+        if split is not None:
+            x, keep = _halo(conv, x, *split)
         sources = (conv.weight,) if bn is None else (
             conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)
         w, scale, shift = derived(conv, conv.weight.dtype, sources,
                                   lambda: kernel_operands(conv, bn))
         y = conv3d_bn_act(x.contiguous(), w, scale, shift, conv.stride[0], relu)
-        return y if keep is None else y[:, keep]
-    if keep is not None:
-        y = y[:, keep]
+        return y if keep is None else y.narrow(split[1], *keep)
+    if split is not None:
+        y = _SlabConv.apply(x, conv.weight, conv.bias, conv, *split)
+    elif kernel:
+        y = conv3d(x, conv.weight, conv.stride[0])
+    else:
+        y = _conv(conv, x)
     if bn is not None:
         y = bn(y)
     return torch.relu(y) if relu else y
@@ -275,5 +443,5 @@ class Conv2x(nn.Module):
     def forward(self, x, rem):
         x = self.conv1(x)
         if x.shape[1:-1] != rem.shape[1:-1]:
-            x = resize_bilinear(x, rem.shape[1:3])
+            x = resize_bilinear(x, rem.shape[1:3], rows_of(self))
         return self.conv2(torch.cat([x, rem], dim=-1))

@@ -241,31 +241,43 @@ def conv3d_weight_grad(x, gy, stride: int):
 conv3d_weight_grad.launches = 0
 
 
+def conv3d_forward(x, w, stride: int, relu: bool = False):
+    """``conv3d``'s forward without autograd: K1 with scale 1 and bias 0."""
+    w3 = w.permute(2, 3, 4, 1, 0).contiguous()  # [3,3,3,C,F]
+    ones = torch.ones(w.shape[0], dtype=torch.float32, device=x.device)
+    return conv3d_bn_act(x.contiguous(), w3, ones, torch.zeros_like(ones), stride, relu)
+
+
+def conv3d_backward(x, w, gy, stride: int, need_dx: bool = True, need_dw: bool = True):
+    """(dx, dw) of ``conv3d`` without ReLU for the output cotangent ``gy``
+    (each None where not needed): ``_vjp_bwd``'s split, see the module
+    docstring."""
+    gy = gy.contiguous()
+    dx = dw = None
+    if need_dx:
+        if stride == 1:
+            dx = conv3d_input_grad_s1(gy, w.permute(2, 3, 4, 1, 0).contiguous())
+        else:
+            dx = conv3d_input_grad_s2(gy, w, x.shape[1:4])
+    if need_dw:
+        dw = conv3d_weight_grad(x.contiguous(), gy, stride).permute(4, 3, 0, 1, 2).to(w.dtype)
+    return dx, dw
+
+
 class _Conv3d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, stride, relu):
-        w3 = w.permute(2, 3, 4, 1, 0).contiguous()  # [3,3,3,C,F]
-        ones = torch.ones(w.shape[0], dtype=torch.float32, device=x.device)
-        y = conv3d_bn_act(x.contiguous(), w3, ones, torch.zeros_like(ones), stride, relu)
+        y = conv3d_forward(x, w, stride, relu)
         ctx.stride, ctx.relu = stride, relu
-        ctx.save_for_backward(x, w, w3, y if relu else None)
+        ctx.save_for_backward(x, w, y if relu else None)
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        x, w, w3, y = ctx.saved_tensors
+        x, w, y = ctx.saved_tensors
         if ctx.relu:
             gy = torch.where(y > 0, gy, 0)
-        gy = gy.contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            if ctx.stride == 1:
-                dx = conv3d_input_grad_s1(gy, w3)
-            else:
-                dx = conv3d_input_grad_s2(gy, w, x.shape[1:4])
-        if ctx.needs_input_grad[1]:
-            dw = conv3d_weight_grad(x.contiguous(), gy, ctx.stride).permute(4, 3, 0, 1, 2)
-            dw = dw.to(w.dtype)
+        dx, dw = conv3d_backward(x, w, gy, ctx.stride, *ctx.needs_input_grad[:2])
         return dx, dw, None, None
 
 

@@ -6,7 +6,10 @@ shift ``d - max_shift`` (symmetric) or ``d`` (positive):
 ``vol[b,d,h,x,g] = mean_c ln[b,h,x,g,c] * rn[b,h,x-s,g,c]`` for in-range
 ``x - s``, else 0.  Every function takes a slab of the planes, the
 ``planes`` planes from ``plane0`` on (the whole range by default): the
-part of the volume that one process of a disp group holds.
+part of the volume that one process of a disp group holds.  Each row of
+the volume correlates the same row of the two feature maps (shifts run
+along W), so under spatial parallelism each process launches both kernels
+on its slab of rows as they are, with no halo.
 
 ``gwc_volume_norm`` is differentiable.  On CUDA tensors its forward
 launches the Hopper kernel ``csrc/gwc_volume.cu`` (K2, which replaces the
@@ -217,6 +220,7 @@ def gwc_volume_norm_fwd(left, right, max_shift: int, num_groups: int,
     _build.check(err, "gwc_volume_norm")
     gwc_volume_norm.launches += 1
     gwc_volume_norm.planes += d
+    gwc_volume_norm.rows += h
     return out
 
 
@@ -257,6 +261,7 @@ def gwc_volume_norm_bwd(left, right, gbar, max_shift: int, num_groups: int,
     _build.check(err, "gwc_volume_norm_bwd")
     gwc_volume_norm_bwd.launches += slabs
     gwc_volume_norm_bwd.planes += d
+    gwc_volume_norm_bwd.rows += h
     return gl, gr
 
 
@@ -283,10 +288,14 @@ def gwc_volume_norm(left, right, max_shift: int, num_groups: int, symmetric: boo
     return _GwcVolumeNorm.apply(left, right, max_shift, num_groups, symmetric, plane0, planes)
 
 
-# Kernel launches of K2 and K4, and the planes they computed; the smoke run
+# Kernel launches of K2 and K4, and the planes and rows they computed (a
+# launch's rows counted once, whatever its slabs of planes); the smoke run
 # reads them to show that the main path went through the kernels (on one
-# process's slab of the planes under disparity parallelism).
+# process's slab of the planes under disparity parallelism, of the rows
+# under spatial parallelism).
 gwc_volume_norm.launches = 0
 gwc_volume_norm_bwd.launches = 0
 gwc_volume_norm.planes = 0
 gwc_volume_norm_bwd.planes = 0
+gwc_volume_norm.rows = 0
+gwc_volume_norm_bwd.rows = 0

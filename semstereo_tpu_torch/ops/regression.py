@@ -2,7 +2,8 @@
 
 Counterpart of ``semstereo_tpu/ops/regression.py``.  Volumes are
 [B, D, H, W]; plane d maps to disparity ``d - D/2`` (symmetric, US3D) or
-``d`` (positive, WHU).
+``d`` (positive, WHU).  Every op here is per pixel, so under spatial
+parallelism each process runs it on its slab of rows.
 """
 
 from __future__ import annotations

@@ -6,6 +6,8 @@ a two-tap horizontal gather and lerp: sample column ``x - d``.  Coordinates
 are computed in float32 whatever the feature dtype: the bf16 ulp is 1.0 for
 |x| >= 128, which would collapse the bilinear weights to nearest-neighbour
 over most of a wide image.  Only the lerp weights take the feature dtype.
+Every op here reads the same row of its inputs (the warps run along W), so
+under spatial parallelism each process runs them on its slab of rows.
 """
 
 from __future__ import annotations

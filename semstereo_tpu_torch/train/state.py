@@ -32,15 +32,20 @@ def init_state(cfg: TrainConfig, device="cuda", mesh: Mesh | None = None) -> Tra
     unless the caller asks for the CPU) in train mode, with weights drawn
     from ``cfg.seed`` and, when ``cfg.model.pretrained_backbone`` names a
     timm checkpoint, its backbone loaded from it; and its optimizer.  The
-    model splits its cost volumes over ``mesh``'s disp axis; with
-    ``cfg.parallel.disp`` above 1 and no mesh given, over
-    ``make_mesh(cfg.parallel.data, cfg.parallel.disp)``.  ``parallel.disp``
-    is the one switch: the JAX package's ``ModelConfig.shard_disp`` splits
-    nothing on a mesh whose disp axis is 1, so the port has no such field."""
-    if mesh is None and cfg.parallel.disp > 1:
-        mesh = make_mesh(cfg.parallel.data, cfg.parallel.disp)
-    if mesh is not None and mesh.disp != cfg.parallel.disp:
-        raise ValueError(f"mesh disp={mesh.disp}, config disp={cfg.parallel.disp}")
+    model splits its cost volumes over ``mesh``'s disp axis and its rows
+    over its space axis; with ``cfg.parallel.disp`` or ``space`` above 1
+    and no mesh given, over ``make_mesh(cfg.parallel.data,
+    cfg.parallel.disp, cfg.parallel.space)``.  ``parallel.disp`` and
+    ``parallel.space`` are the switches: the JAX package's
+    ``ModelConfig.shard_disp`` and ``shard_spatial`` split nothing on a
+    mesh whose axis is 1 (``state.py`` sets ``shard_spatial`` from
+    ``parallel.space``), so the port has no such fields."""
+    par = cfg.parallel
+    if mesh is None and (par.disp > 1 or par.space > 1):
+        mesh = make_mesh(par.data, par.disp, par.space)
+    if mesh is not None and (mesh.disp, mesh.space) != (par.disp, par.space):
+        raise ValueError(f"mesh disp={mesh.disp} space={mesh.space}, config "
+                         f"disp={par.disp} space={par.space}")
     model = build_model(cfg.model, device=device, seed=cfg.seed, mesh=mesh).train()
     if cfg.model.pretrained_backbone:
         n = load_and_merge(cfg.model.pretrained_backbone, model)

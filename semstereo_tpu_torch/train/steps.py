@@ -16,7 +16,13 @@ of a disp group hold the same rows, so the world-summed denominators count
 those rows ``disp`` times: each process's loss is 1/disp of its rows'
 share, and the same world-wide sums of the gradients and scalars give the
 global values (the model's slabs send their parts of the gradient back
-through the gathers' adjoints).
+through the gathers' adjoints).  Under spatial parallelism the processes
+of a space group hold distinct rows of the same images, so the masked
+means' world-summed denominators count each pixel once and the sums give
+the global values as under data parallelism; the dice loss and the
+per-image metrics sum their spatial sums over the space group first
+(``losses.dice_loss``, ``metrics.py``), on the model's row mesh
+(``layers.rows_of``).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from torch.func import functional_call
 
 from semstereo_tpu_torch import losses, metrics
 from semstereo_tpu_torch.config import TrainConfig
+from semstereo_tpu_torch.nn.layers import rows_of
 from semstereo_tpu_torch.parallel import all_reduce_grads, all_reduce_scalars
 from semstereo_tpu_torch.train.state import TrainState
 
@@ -47,8 +54,9 @@ def _display_gt(gt):
     return torch.where(gt < -871.0, 0.0, gt)
 
 
-def assemble_train_loss(cfg: TrainConfig, out, batch):
-    """(total loss, dict of its terms, valid mask of the full-res gt)."""
+def assemble_train_loss(cfg: TrainConfig, out, batch, rows=None):
+    """(total loss, dict of its terms, valid mask of the full-res gt); on
+    row slabs with ``rows``."""
     model_cfg, loss_cfg = cfg.model, cfg.loss
     gt, gt4 = batch["disparity"], batch["disparity_4"]
     policy = cfg.data.resolved_mask_policy(model_cfg.symmetric)
@@ -65,7 +73,7 @@ def assemble_train_loss(cfg: TrainConfig, out, batch):
     aux = {"disp_loss": disp_loss}
     if loss_cfg.use_seg:
         seg = losses.label_loss(out["label_l"], batch["label"], model_cfg.num_classes,
-                                model_cfg.att_weights_only, loss_cfg.ignore_index)
+                                model_cfg.att_weights_only, loss_cfg.ignore_index, rows)
         total = total + seg
         aux["label_loss"] = seg
     if loss_cfg.use_lrsc:
@@ -94,12 +102,13 @@ def _apply(model, cfg: TrainConfig, left, right):
             for k, v in out.items()}
 
 
-def _disp_metrics(est, gt, mask):
+def _disp_metrics(est, gt, mask, rows=None):
     est = est.detach()
-    return dict(EPE=metrics.epe_metric(est, gt, mask), D1=metrics.d1_metric(est, gt, mask),
-                Thres1=metrics.thres_metric(est, gt, mask, 1.0),
-                Thres2=metrics.thres_metric(est, gt, mask, 2.0),
-                Thres3=metrics.thres_metric(est, gt, mask, 3.0))
+    return dict(EPE=metrics.epe_metric(est, gt, mask, rows),
+                D1=metrics.d1_metric(est, gt, mask, rows),
+                Thres1=metrics.thres_metric(est, gt, mask, 1.0, rows),
+                Thres2=metrics.thres_metric(est, gt, mask, 2.0, rows),
+                Thres3=metrics.thres_metric(est, gt, mask, 3.0, rows))
 
 
 def make_grads_fn(cfg: TrainConfig):
@@ -119,7 +128,7 @@ def make_grads_fn(cfg: TrainConfig):
         for i in range(accum):
             mb = {k: v[i * n // accum:(i + 1) * n // accum] for k, v in batch.items()}
             out = _apply(model, cfg, mb["left"], mb["right"])
-            total, aux, mask = assemble_train_loss(cfg, out, mb)
+            total, aux, mask = assemble_train_loss(cfg, out, mb, rows_of(model))
             (total / accum).backward()
             auxs.append({k: v.detach() for k, v in aux.items()})
             outs.append({k: tuple(t.detach() for t in v) if isinstance(v, tuple) else v.detach()
@@ -159,8 +168,8 @@ def make_train_step(cfg: TrainConfig):
         if cfg.optim.grad_clip > 0:
             _clip_by_global_norm(model.parameters(), cfg.optim.grad_clip)
         state.optimizer.step()
-        return all_reduce_scalars(
-            dict(aux, **_disp_metrics(out["disp"][0], _display_gt(batch["disparity"]), mask)))
+        return all_reduce_scalars(dict(aux, **_disp_metrics(
+            out["disp"][0], _display_gt(batch["disparity"]), mask, rows_of(model))))
 
     return train_step
 
@@ -174,6 +183,7 @@ def make_eval_step(cfg: TrainConfig):
 
     def eval_step(state: TrainState, batch):
         model = state.model.eval()
+        rows = rows_of(model)
         device = next(model.parameters()).device
         batch = {k: v.to(device) for k, v in batch.items()}
         out = _apply(model, cfg, batch["left"], batch["right"])
@@ -186,11 +196,11 @@ def make_eval_step(cfg: TrainConfig):
                 gt = batch["disparity"]
                 mask = valid_mask(gt, model_cfg.maxdisp, policy)
                 scalars["disp_loss"] = losses.disp_loss_eval(est, gt, mask.float())
-                scalars.update(_disp_metrics(est, _display_gt(gt), mask))
+                scalars.update(_disp_metrics(est, _display_gt(gt), mask, rows))
         if model_cfg.seg_if and "label" in batch:
             scalars["label_loss"] = losses.label_loss(
                 out["label_l"], batch["label"], model_cfg.num_classes,
-                model_cfg.att_weights_only, cfg.loss.ignore_index)
+                model_cfg.att_weights_only, cfg.loss.ignore_index, rows)
             scalars["confusion"] = metrics.confusion_matrix(
                 out["label_l"], batch["label"], model_cfg.num_classes - 1)
         elif model_cfg.seg_if:

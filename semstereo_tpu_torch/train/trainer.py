@@ -37,6 +37,16 @@ and the batch sizes split over the data count.  The confusion matrices are
 summed over one process of each group (the others add zeros), so the
 printed matrix is the one-process matrix; the group's first process writes
 the ``--save-dir`` dumps of its rows.
+
+Spatial parallelism (``cfg.parallel.space`` above 1): the processes form
+``data`` groups of ``space``; the processes of a group load the same rows,
+as under disp, and each moves its slab of rows of every key in
+``parallel.SPATIAL_KEYS`` to the device (``parallel.slab_rows``).  The
+confusion matrices are summed over every process, as each counts its own
+pixels.  For the ``--save-dir`` dumps the disparity (and label) rows are
+gathered over the group and the group's first process writes them, the
+files of one process; the TensorBoard image panel shows the logging
+process's slab of rows.
 """
 
 from __future__ import annotations
@@ -58,8 +68,10 @@ from semstereo_tpu_torch.parallel import (
     barrier,
     broadcast_check,
     check_parallel,
+    gather_rows,
     make_mesh,
     process_count,
+    slab_rows,
 )
 from semstereo_tpu_torch.train import checkpoint as ckpt
 from semstereo_tpu_torch.train.state import TrainState, init_state, set_learning_rate
@@ -121,9 +133,11 @@ def _pad_eval_batch(batch, bs, maxdisp, ignore_index, invalidate_all=False):
     return out, real
 
 
-def _device_batch(batch: dict, keys, device: torch.device) -> dict:
-    """The step's keys of a numpy batch as tensors on ``device``: from
-    pinned memory without blocking on the card."""
+def _device_batch(batch: dict, keys, device: torch.device, mesh=None) -> dict:
+    """The step's keys of a numpy batch as tensors on ``device`` (this
+    process's slab of rows of each under a ``mesh`` that splits the rows):
+    from pinned memory without blocking on the card."""
+    batch = slab_rows({k: batch[k] for k in keys if k in batch}, mesh)
     out = {}
     for k in keys:
         if k in batch:
@@ -156,7 +170,7 @@ class Trainer:
                 f"WORLD_SIZE={launched} but this process is in a group of 1: join the group "
                 "first (parallel.init_process_group, as cli.train does under torchrun)")
         check_parallel(cfg.parallel, world, cfg.model)
-        self.mesh = make_mesh(cfg.parallel.data, cfg.parallel.disp)
+        self.mesh = make_mesh(cfg.parallel.data, cfg.parallel.disp, cfg.parallel.space)
         data = self.mesh.data
         for name in ("batch_size", "test_batch_size"):
             if getattr(cfg.data, name) % data:
@@ -231,7 +245,7 @@ class Trainer:
             self.train_loader.set_epoch(epoch)
             for it, batch in enumerate(self.train_loader):
                 t0 = time.time()
-                dev_batch = _device_batch(batch, _TRAIN_KEYS, self.device)
+                dev_batch = _device_batch(batch, _TRAIN_KEYS, self.device, self.mesh)
                 scalars = _scalar_floats(self.train_step(self.state, dev_batch))
                 step = epoch * len(self.train_loader) + it
                 if self.writer and step % (cfg.summary_freq * 1000) == 0:
@@ -286,17 +300,24 @@ class Trainer:
             else:
                 last_raw = raw
                 batch, real = _pad_eval_batch(raw, bs, cfg.model.maxdisp, cfg.loss.ignore_index)
-            scalars = self.eval_step(self.state, _device_batch(batch, _EVAL_KEYS, self.device))
+            scalars = self.eval_step(self.state, _device_batch(batch, _EVAL_KEYS, self.device,
+                                                               self.mesh))
             cm = scalars.pop("confusion", None)
             disp_est = scalars.pop("disp_est", None)
             label_est = scalars.pop("label_est", None)
             if disp_est is not None:
                 disp_est = disp_est.cpu().numpy()
-            if save_dir and real and disp_est is not None and self.mesh.disp_index == 0:
-                self._save_outputs(save_dir, batch, disp_est[:real],
-                                   None if label_est is None else label_est.cpu().numpy()[:real])
+            if save_dir and disp_est is not None:
+                # the whole rows, written by the first process of a disp or space group
+                whole = [gather_rows(t, self.mesh) for t in (disp_est, label_est)
+                         if t is not None]
+                if real and self.mesh.disp_index == 0 and self.mesh.space_index == 0:
+                    self._save_outputs(save_dir, batch, whole[0][:real],
+                                       None if label_est is None else
+                                       whole[1].cpu().numpy()[:real])
             if cm is not None:
-                # one process of each disp group counts its rows
+                # one process of each disp group counts its rows (every
+                # process of a space group its own)
                 cm = cm.cpu().numpy() * (self.mesh.disp_index == 0)
                 if per_batch:
                     (cm,) = all_reduce_sum_tree((cm,))
@@ -304,7 +325,7 @@ class Trainer:
                 else:
                     seg_meter.add_confusion(cm)
             if self.writer and it % cfg.summary_freq == 0 and disp_est is not None:
-                self._log_images(epoch, batch, disp_est)
+                self._log_images(epoch, slab_rows(batch, self.mesh), disp_est)
             meters.update(_scalar_floats(scalars) if scalars else {})
         if not per_batch:
             (seg_meter.cm,) = all_reduce_sum_tree((seg_meter.cm,))

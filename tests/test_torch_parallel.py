@@ -67,7 +67,7 @@ from semstereo_tpu_torch.cli import evaluate as cli_evaluate
 from semstereo_tpu_torch.cli import train as cli_train
 from semstereo_tpu_torch.config import ModelConfig, OptimConfig, ParallelConfig, TrainConfig
 from semstereo_tpu_torch.data import SyntheticStereoDataset
-from semstereo_tpu_torch.parallel import all_reduce_sum_tree, check_parallel
+from semstereo_tpu_torch.parallel import all_reduce_sum_tree, check_parallel, check_space_rows
 from semstereo_tpu_torch.train import init_state, make_train_step
 from tests._torch_threads import two_torch_threads  # noqa: F401
 
@@ -358,13 +358,13 @@ US3D = {stage: dict(maxdisp=64, topk=24, att_weights_only=stage == 1) for stage 
     (ParallelConfig(data=1, disp=4), 4, US3D[2], "/4 top-k concat"),
     (ParallelConfig(disp=2), 2, MODEL, "/8 cosine volume's 4 planes"),
     (ParallelConfig(disp=8), 8, US3D[1], "/8 cosine volume's 16 planes"),
-    (ParallelConfig(space=2), 2, None, "spatial parallelism"),
-    (ParallelConfig(disp=2, space=2), 4, US3D[2], "spatial parallelism"),
+    (ParallelConfig(disp=2, space=2), 4, US3D[2], "spatial parallelism together are not "
+     "ported yet"),
     (ParallelConfig(disp=3), 4, None, "disp=3 does not divide")])
 def test_check_parallel_refuses_what_does_not_split(parallel, world, model, match):
     """A disp whose slabs do not hold a multiple of 4 planes of each volume
-    (naming the volume), any spatial split, and a disp that does not divide
-    the processes."""
+    (naming the volume), a disp split beside a spatial one, and a disp that
+    does not divide the processes."""
     with pytest.raises(ValueError, match=match):
         check_parallel(parallel, world, None if model is None else ModelConfig(**model))
 
@@ -379,3 +379,43 @@ def test_check_parallel_accepts_the_plane_count_table(parallel, world, model):
     stage 2 (16 and 24 planes) at 1 and 2, stage 1 (16) at 1, 2 and 4, WHU
     at maxdisp 64 (8 and 16) at 1 and 2."""
     check_parallel(parallel, world, ModelConfig(**model))
+
+
+# (space, height, model): the height rules of parallel.check_space_rows, each
+# broken once, with the level and the rows its message names
+HEIGHT_RULES = [
+    (2, 1000, US3D[2], "125 rows at /4, which the stride-2 conv to /8"),
+    (2, 1048, US3D[2], "131 rows at /4, which the stride-2 conv to /8"),
+    (4, 1056, US3D[2], "33 rows at /8, where the MobileViTv2 block's 2x2 patches"),
+    (2, 1088, US3D[2], "17 rows at /32, where the MobileViTv2 block's 2x2 patches"),
+    (32, 1024, US3D[2], "1 rows at /32, where the MobileViTv2 block's 2x2 patches"),
+    (16, 1024, US3D[2], "2 rows at /32, which hourglass_att's attention windows of 4"),
+    (4, 1152, US3D[2], "9 rows at /32, where the MobileViTv2"),
+    (16, 1024, dict(US3D[2], att_window1=(4, 2, 4), att_window2=(6, 8, 4)),
+     "4 rows at /16, which hourglass's attention windows of 8"),
+    (3, 1024, US3D[2], "1024 rows do not split into 3 slabs")]
+
+
+@pytest.mark.parametrize("space,height,model,match", HEIGHT_RULES)
+def test_check_parallel_refuses_what_breaks_a_height_rule(space, height, model, match):
+    """A space whose slabs break a height rule, named by its level and rows
+    (the processes themselves split: the rule is the height's)."""
+    check_parallel(ParallelConfig(space=space), space, ModelConfig(**model))
+    with pytest.raises(ValueError, match=match):
+        check_space_rows(height, space, ModelConfig(**model))
+
+
+@pytest.mark.parametrize("parallel,world,model,height", [
+    (ParallelConfig(space=2), 2, US3D[2], 1024), (ParallelConfig(space=4), 4, US3D[2], 1024),
+    (ParallelConfig(space=8), 8, US3D[2], 1024), (ParallelConfig(space=8), 8, US3D[1], 1024),
+    (ParallelConfig(data=2, space=2), 4, US3D[2], 1024),
+    (ParallelConfig(data=-1, space=2), 8, US3D[2], 1024),
+    (ParallelConfig(space=2), 2, MODEL, 128), (ParallelConfig(space=2), 2, None, None)])
+def test_check_parallel_accepts_the_height_rules(parallel, world, model, height):
+    """data x space = world at the heights the rules allow: US3D's 1024
+    rows at space 2, 4 and 8 (64 rows a slab at /32 hold 2 of hourglass_att's
+    windows of 4 rows at space 8), the tiny model's 128 rows at 2."""
+    model = None if model is None else ModelConfig(**model)
+    check_parallel(parallel, world, model)
+    if height is not None:
+        check_space_rows(height, parallel.space, model)

@@ -137,7 +137,14 @@ def _grads_against_jax(jcfg, cfg, seed):
                       att_window1=m.att_window1, att_window2=m.att_window2,
                       att_weights_only=m.att_weights_only, symmetric=m.symmetric).train()
     load_flax_variables(model, params, stats)
-    aux, out, _ = make_grads_fn(cfg)(model, batch)
+    # PyTorch's own CPU convolutions, not oneDNN's: oneDNN's rounded the
+    # grouped (1, 3, 3) patch conv one of three ways from run to run of the
+    # same process configuration (8 of 58 runs in pairs; disparities 0.23 or
+    # 0.27 px from JAX's, and gradients 0.05-0.09 apart, against 0.064 px in
+    # the rest).  Without it 10 runs of 10 gave one result, 0.072 px and
+    # 0.019 from JAX's.
+    with torch.backends.mkldnn.flags(enabled=False):
+        aux, out, _ = make_grads_fn(cfg)(model, batch)
     sd = {n: p.grad for n, p in model.named_parameters()}
     sd.update(model.named_buffers())
     grads, new_stats, unused = convert_semstereo_state_dict(sd)
