@@ -151,7 +151,63 @@
    one-process epoch's, both processes' eval results within
    ``SPACE_CLI_EVAL_REL`` of one process's eval of the space run's
    checkpoint, every step and eval batch launching ``TRAIN_LAUNCHES`` and
-   ``EVAL_LAUNCHES`` per process.
+   ``EVAL_LAUNCHES`` per process; (d) four processes at ``space = 4``
+   (``chip_smoke.py --worker space4 ...``, 256 of the 1024 rows each):
+   the flagship request in fp32 with every /4 plane kept, its disparity
+   within ``FUSE_FP32_BOUNDS`` of one process's, and the train path's step,
+   its launches, K2's and K4's 32 of 128 /8 rows and each process's peak
+   memory beside space 2's and one process's.
+14. disp x space parallel (after space parallel): four processes on the
+   one card, gloo on CUDA tensors, splitting the volumes' planes and the
+   images' rows at once (``disp = 2``, ``space = 2``, ``data = 1``;
+   rank = disp_index * 2 + space_index; ``chip_smoke.py --worker
+   disp-space ...``): (a) the fp32 256x256 agreement step on each
+   process's 128 rows of the global batch of 2 against the one-process
+   step (``TRAIN_BOUNDS``), every process's gradients and updated
+   parameters equal to process 0's bit for bit, ``TRAIN_LAUNCHES`` per
+   process with K2 and K4 on 8 of the 16 planes of 16 of the 32 /8 rows;
+   (b) the flagship request on 512 rows a process: in fp32 with every /4
+   plane kept, every process's disparity within ``FUSE_FP32_BOUNDS`` of one
+   process's (a disp group's processes compute the same rows, but the
+   fp32 front end does not round alike in all of them: the largest
+   difference within a group is printed);
+   in bf16, the gathered ``label_l`` and /8 attention volume within
+   ``BF16_REL``, the stage-2 cost within ``SPACE_COST_REL`` on the pixels
+   whose top-k choice equals one process's (at least ``SPACE_SAME_TOPK``),
+   the median disparity difference within ``SPACE_BF16_LEVEL`` times the
+   bf16 level, and the differing top-k choices in the bands around the
+   slab boundaries within ``SPACE_BAND_EXCESS`` of the median band, along
+   the rows (``SPACE_BAND_ROWS``) and along the /4 planes
+   (``DISP_SPACE_PLANE_BAND``); the processes of a disp group equal;
+   ``EVAL_LAUNCHES`` per request with K2 on 8 planes of 64 /8 rows, peak
+   memory and ms per pair per process (four processes share the card and
+   gloo stages through the host: no speed of the split); (c) ``cli.train
+   --disp-parallel 2 --space-parallel 2`` for the trainer phase's stage-2
+   epoch: every process loading one process's rows, its first batch on the
+   card one process's cut by height, its first loss within
+   ``DISP_CLI_LOSS_REL`` of the one-process epoch's, its eval within
+   ``SPACE_CLI_EVAL_REL`` of one process's eval of its checkpoint; then
+   ``cli.evaluate`` with the same flags on that checkpoint, within
+   ``SPACE_CLI_EVAL_REL`` of the one-process ``cli.evaluate``; every step
+   and eval batch launching ``TRAIN_LAUNCHES`` and ``EVAL_LAUNCHES``; (d)
+   the train path's step per process: launches, K2's and K4's 8 planes of
+   64 /8 rows and peak memory beside one process's, space 2's and space
+   4's; (e) eight processes at ``data = 2 x disp = 2 x space = 2``, the
+   JAX package's composed mesh (``chip_smoke.py --worker dds-step ...``):
+   the fp32 256x256 agreement step against one process's
+   (``TRAIN_BOUNDS``), every process equal to process 0 bit for bit.
+15. bf16 curves (after the train agreement): the JAX package's 200-step
+   bf16-against-fp32 curves, on the tiny config (maxdisp 16, topk 4,
+   windows (1, 2, 2), 32x32, batch 2, seg and LRSC losses, lr 1e-3): first
+   each kernel call of one bf16 step (K1, K3's dw, K2, K4 at the tiny
+   shapes) against its plain version within ``REL_TOL``; then, from the
+   fp32 master of each seed of ``BF16_CURVE_SEEDS``, a curve in bf16, one
+   in fp32 and a second in fp32, over the 4 batches of 8 synthetic samples
+   in order, K1-K4 launched every step, each curve a process of its own on
+   the card (``chip_smoke.py --worker curve ...``, all at once), every
+   loss finite; JAX's bounds on the final 10 steps' mean losses
+   (``BF16_CURVE_REL``, ``BF16_CURVE_FALL``) printed for bf16 and for the
+   fp32 repeat against fp32, not held (``BF16_CURVE_SEEDS`` says why).
 
 Prints one JSON line of per-kernel numbers, then, last, the ``ok`` line.
 Exits non-zero (and prints no result) without a CUDA device or outside the
@@ -302,6 +358,8 @@ SPACE_COST_REL = 0.1
 SPACE_BF16_LEVEL = 2.0
 SPACE_BAND_ROWS = 8
 SPACE_BAND_EXCESS = 0.1
+# (d): the space 4 run's processes (1024 rows, 256 a slab).
+SPACE4 = 4
 # (c): the first step's loss against the one-process epoch's (relative;
 # 6.9e-4, 0, 7.2e-5 and 3.8e-4 in those runs), and each eval result against
 # one process's eval of the same checkpoint (relative, absolute below 1;
@@ -310,6 +368,29 @@ SPACE_BAND_EXCESS = 0.1
 # rows and first batch loaded are compared exactly.
 SPACE_CLI_LOSS_REL = 5e-3
 SPACE_CLI_EVAL_REL = 1e-2
+# The disp x space phase (disp = DISP, space = SPACE, four processes): the
+# space phase's bounds hold its bf16 flagship request, the boundary bands
+# measured in the row direction (SPACE_BAND_ROWS) and in the plane
+# direction: the share of /4 pixels whose top-k choice of each /4 plane
+# differs from one process's, in bands of DISP_SPACE_PLANE_BAND planes, one
+# centred on the /8 plane slabs' boundary (plane 16 of 32).  Set before the
+# phase's first run on the card (PERF.md section 6).
+DISP_SPACE_PLANE_BAND = 4
+# The bf16 training phase: the JAX package's test_bf16_fp32_loss_curve_200steps
+# (tests/test_train_integration.py): steps, the tail whose mean loss is
+# compared, the largest relative gap of the two dtypes' tails, and the share
+# of its first loss that each curve's tail must fall below (JAX's bounds);
+# and the seeds of the fp32 masters.  On the card the tiny config's training
+# does not repeat itself from run to run, and a curve may stall
+# on a plateau for a hundred steps or not: on the H100, seed 1's bf16/fp32
+# tail ratio came to 1.21 in one run of this phase and 1.00 in another, and
+# seed 2's bf16 curve stalled (ratio 1.53) where its seed-1 and seed-3
+# curves did not (PERF.md section 6).  So JAX's bounds, set for one
+# deterministic TPU run, are printed for bf16 beside an fp32 repeat of the
+# same seed, the card's own spread, and do not fail the phase.
+BF16_CURVE_STEPS, BF16_CURVE_TAIL = 200, 10
+BF16_CURVE_REL, BF16_CURVE_FALL = 0.10, 0.2
+BF16_CURVE_SEEDS = (1, 2, 3)
 # K4 at the main path's shape at the train batch: features [2, 128, 128, 256].
 K4_SHAPE = ((TRAIN_BATCH, 128, 128, 256), 32, 8)
 # K4 at symmetric plane counts above one launch's slab, the smallest that
@@ -1734,7 +1815,8 @@ def boundary_bands(same: torch.Tensor, boundary: int, width: int) -> dict:
 def train_1024_step(ops, device, mesh=None) -> dict:
     """The train path's step (US3D stage 2, 1024x1024, batch 2, bf16) after
     one warm-up step, with its peak memory from a reset; on the process's
-    row slab of the batch under a mesh."""
+    row slab of the batch under a mesh (and its plane slabs of the volumes
+    under a disp axis)."""
     from semstereo_tpu_torch.config import ParallelConfig, TRAIN_PRESETS
     from semstereo_tpu_torch.data import SyntheticStereoDataset
     from semstereo_tpu_torch.parallel import slab_rows
@@ -1742,7 +1824,7 @@ def train_1024_step(ops, device, mesh=None) -> dict:
 
     cfg = TRAIN_PRESETS["us3d_stage2"].replace(compute_dtype="bfloat16")
     if mesh is not None:
-        cfg = cfg.replace(parallel=ParallelConfig(space=mesh.space))
+        cfg = cfg.replace(parallel=ParallelConfig(disp=mesh.disp, space=mesh.space))
     state = init_state(cfg, device=device, mesh=mesh)
     batch = SyntheticStereoDataset(TRAIN_BATCH, 1024, 1024, cfg.model.maxdisp).batch(
         0, TRAIN_BATCH)
@@ -1756,14 +1838,14 @@ def train_1024_step(ops, device, mesh=None) -> dict:
     out = step(state, batch)
     torch.cuda.synchronize()
     return dict(ms=1e3 * (time.perf_counter() - t0), peak_bytes=torch.cuda.max_memory_allocated(),
-                launches=counts(ops), rows=rows_launched(ops), loss=float(out["loss"]))
+                launches=counts(ops), rows=rows_launched(ops), planes=planes(ops),
+                loss=float(out["loss"]))
 
 
 def space_worker(out_path: str, cli_argv: list[str]) -> None:
     """One of the two processes of the space-parallel phase (docstring,
     item 13), gloo on CUDA tensors."""
     from semstereo_tpu_torch import ops, parallel
-    from semstereo_tpu_torch.cli import train as cli_train
     from semstereo_tpu_torch.config import PRESETS, ParallelConfig
     from semstereo_tpu_torch.train import init_state, make_train_step
 
@@ -1807,8 +1889,17 @@ def space_worker(out_path: str, cli_argv: list[str]) -> None:
     res["eval_fp32"] = model(left, right)["disp"][0].cpu()
     del model
     res["train_1024"] = train_1024_step(ops, device, mesh)
-    # (c): the first train batch each process moved to the card, and the
-    # launches of every step
+    # (c)
+    res["cli"] = recorded_cli_train(ops, cli_argv)
+    torch.save(res, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def recorded_cli_train(ops, cli_argv: list[str]) -> dict:
+    """``cli.train.main(cli_argv)`` in this process's group, with the first
+    train batch it moved to the card, the launches of every step, the
+    epochs and the rows it loaded."""
+    from semstereo_tpu_torch.cli import train as cli_train
     from semstereo_tpu_torch.train import trainer as trainer_mod
 
     steps, first = [], {}
@@ -1827,44 +1918,71 @@ def space_worker(out_path: str, cli_argv: list[str]) -> None:
     finally:
         trainer_mod._device_batch = device_batch
     loader = trainer.train_loader
-    res["cli"] = dict(steps=steps, history=trainer.history, rows=loader._indices().tolist(),
-                      shard=(loader.shard_index, loader.shard_count), first_batch=first)
+    return dict(steps=steps, history=trainer.history, rows=loader._indices().tolist(),
+                shard=(loader.shard_index, loader.shard_count), first_batch=first)
+
+
+def split_references() -> dict:
+    """One process's results that the space and disp x space phases hold
+    their splits to: the fp32 256x256 agreement step (``want``), the
+    flagship bf16 request's records (``one``), the same request in fp32
+    (the bf16 level) and in fp32 with every /4 plane kept (the splits' fp32
+    witness at the flagship's size), and the fp32 256x256 request."""
+    from semstereo_tpu_torch.config import PRESETS
+    from semstereo_tpu_torch.train import init_state, make_train_step
+
+    cfg = agreement_cfg()
+    state = init_state(cfg)
+    refs = dict(want=step_record(make_train_step(cfg)(
+        state, {k: v.cuda() for k, v in agreement_batch().items()}), state.model))
+    del state
+    pair = stereo_pair(1024, 8, 0)
+    model = seeded_model(PRESETS["us3d_stage2"], seed=0).to("cuda", PATH_DTYPE)
+    refs["one"] = eval_records(model, *(t.to("cuda", PATH_DTYPE) for t in pair))
+    refs["one_fp32_1024"] = model.float()(*(t.cuda() for t in pair))["disp"][0].cpu()
+    del model
+    model = seeded_model(every_plane(PRESETS["us3d_stage2"]), seed=0).cuda()
+    refs["one_fp32_1024_every"] = model(*(t.cuda() for t in pair))["disp"][0].cpu()
+    del model
+    model = seeded_model(cfg.model, seed=0).cuda()
+    left, right = stereo_pair(256, 5, seed=1)
+    refs["one_fp32"] = model(left.cuda(), right.cuda())["disp"][0].cpu()
+    return refs
+
+
+def space4_worker(out_path: str) -> None:
+    """One of the four processes of the space phase's (d), gloo on CUDA
+    tensors: the flagship request in fp32 with every /4 plane kept, and the
+    train path's step, on 256 of the 1024 rows."""
+    from semstereo_tpu_torch import ops, parallel
+    from semstereo_tpu_torch.config import PRESETS
+
+    device = parallel.init_process_group("cuda", backend="gloo")
+    mesh = parallel.make_mesh(-1, 1, SPACE4)
+    model = seeded_model(every_plane(PRESETS["us3d_stage2"]), seed=0, mesh=mesh).to(device)
+    left, right = (row_slab(t, mesh).to(device) for t in stereo_pair(1024, 8, 0))
+    res = {"eval_fp32_1024": model(left, right)["disp"][0].cpu()}
+    del model
+    res["train_1024"] = train_1024_step(ops, device, mesh)
     torch.save(res, out_path)
     torch.distributed.destroy_process_group()
 
 
-def run_space_parallel(ops, tmp: str, path: dict, train: dict) -> dict:
-    """The space-parallel phase (docstring, item 13): the one-process
-    references, then the two processes.  The one-process epoch of (c) is
-    the trainer phase's stage 2 in ``tmp/stage2``; the one-process peak
-    memory of the eval and of the train step are the path phases'."""
+def run_space_parallel(ops, tmp: str, path: dict, train: dict, refs: dict) -> dict:
+    """The space-parallel phase (docstring, item 13): the two processes,
+    then the four of space 4, against the one-process ``refs``
+    (``split_references``).  The one-process epoch of (c) is the trainer
+    phase's stage 2 in ``tmp/stage2``; the one-process peak memory of the
+    eval and of the train step are the path phases'."""
     from semstereo_tpu_torch.cli import train as cli_train
-    from semstereo_tpu_torch.config import PRESETS
     from semstereo_tpu_torch.parallel import Mesh
     from semstereo_tpu_torch.train import checkpoint as ckpt
-    from semstereo_tpu_torch.train import init_state, make_train_step
+    from semstereo_tpu_torch.train import init_state
     from semstereo_tpu_torch.train.trainer import Trainer
 
     script = os.path.abspath(__file__)
-    cfg = agreement_cfg()
-    state = init_state(cfg)
-    want = step_record(make_train_step(cfg)(state, {k: v.cuda() for k, v in
-                                                     agreement_batch().items()}), state.model)
-    del state
-    pair = stereo_pair(1024, 8, 0)
-    model = seeded_model(PRESETS["us3d_stage2"], seed=0).to("cuda", PATH_DTYPE)
-    one = eval_records(model, *(t.to("cuda", PATH_DTYPE) for t in pair))
-    # the bf16 level: the same request in fp32, and in fp32 with every /4
-    # plane kept (the split's fp32 witness at the flagship's size)
-    one_fp32_1024 = model.float()(*(t.cuda() for t in pair))["disp"][0].cpu()
-    del model
-    model = seeded_model(every_plane(PRESETS["us3d_stage2"]), seed=0).cuda()
-    one_fp32_1024_every = model(*(t.cuda() for t in pair))["disp"][0].cpu()
-    del model
-    model = seeded_model(cfg.model, seed=0).cuda()
-    left, right = stereo_pair(256, 5, seed=1)
-    one_fp32 = model(left.cuda(), right.cuda())["disp"][0].cpu()
-    del model
+    want, one, one_fp32 = refs["want"], refs["one"], refs["one_fp32"]
+    one_fp32_1024, one_fp32_1024_every = refs["one_fp32_1024"], refs["one_fp32_1024_every"]
     root = f"{tmp}/data"
     cli_argv = ["--preset", "us3d_stage2", "--datapath", root, "--trainlist",
                 f"{root}/train.txt", "--testlist", f"{root}/test.txt", "--loadckpt",
@@ -2018,7 +2136,516 @@ def run_space_parallel(ops, tmp: str, path: dict, train: dict) -> dict:
             np.isfinite(v) and v <= SPACE_CLI_EVAL_REL for v in eval_rel.values()):
         failures.append(f"the space=2 CLI eval against one process's of its checkpoint: "
                         f"{eval_rel}")
+    # (d): space 4
+    port = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+            "WORLD_SIZE": str(SPACE4)}
+    t0 = time.perf_counter()
+    spawn([([script, "--worker", "space4", f"{tmp}/space4_{r}.pt"],
+            dict(port, RANK=str(r), LOCAL_RANK="0")) for r in range(SPACE4)], DP_TIMEOUT)
+    s4 = [torch.load(f"{tmp}/space4_{r}.pt", weights_only=False) for r in range(SPACE4)]
+    fp32_s4 = (torch.cat([r["eval_fp32_1024"] for r in s4], 1).double()
+               - one_fp32_1024_every.double()).abs()[:, :, 32:]
+    t4 = [r["train_1024"] for r in s4]
+    res["space4"] = dict(
+        wall_s=time.perf_counter() - t0, size=1024,
+        fp32_1024_every_plane=dict(median=float(fp32_s4.median()), max=float(fp32_s4.max())),
+        train_1024=dict(batch=TRAIN_BATCH, dtype="bfloat16", ms=[t["ms"] for t in t4],
+                        peak_bytes=[t["peak_bytes"] for t in t4],
+                        space2_peak_bytes=res["train_1024"]["peak_bytes"],
+                        one_process_peak_bytes=train["max_memory_allocated_bytes"],
+                        launches=[t["launches"] for t in t4], rows=[t["rows"] for t in t4],
+                        loss=[t["loss"] for t in t4]))
+    if not (fp32_s4.median() <= FUSE_FP32_BOUNDS["median"]
+            and fp32_s4.max() <= FUSE_FP32_BOUNDS["max"]):
+        failures.append("the space=4 fp32 1024x1024 eval's disparity disagrees with one "
+                        "process's")
+    if any(t["launches"] != TRAIN_LAUNCHES or t["rows"] != {"K2": 32, "K4": 32}
+           or not np.isfinite(t["loss"]) for t in t4):
+        failures.append("the space=4 1024x1024 train step's launches, rows or loss")
     log("space_parallel", json.dumps(res))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
+def split_step(ops, cfg, mesh, device) -> dict:
+    """The fp32 256x256 agreement step under ``cfg``'s split on this
+    process's rows of the agreement batch (its data shard's, cut to its row
+    slab): the step's record (process 0's), its launches, K2's and K4's
+    planes and rows, its ms, and whether every process holds process 0's
+    gradients and parameters bit for bit."""
+    from semstereo_tpu_torch import parallel
+    from semstereo_tpu_torch.train import init_state, make_train_step
+
+    state = init_state(cfg, device=device, mesh=mesh)
+    rows = {k: v[mesh.data_index::mesh.data] for k, v in agreement_batch().items()}
+    batch = {k: v.to(device) for k, v in parallel.slab_rows(rows, mesh).items()}
+    train_step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    scalars = train_step(state, batch)
+    torch.cuda.synchronize()
+    res = dict(ms=1e3 * (time.perf_counter() - t0), launches=counts(ops), planes=planes(ops),
+               rows=rows_launched(ops))
+    params = list(state.model.parameters())
+    try:
+        parallel.broadcast_check([*(p.grad for p in params), *params],
+                                 "gradients or parameters")
+        res["ranks_equal"] = True
+    except RuntimeError:
+        res["ranks_equal"] = False
+    if parallel.process_index() == 0:
+        res["record"] = step_record(scalars, state.model)
+    return res
+
+
+def disp_space_worker(out_path: str, cli_argv: list[str]) -> None:
+    """One of the four processes of the disp x space phase (docstring, item
+    14), gloo on CUDA tensors."""
+    from semstereo_tpu_torch import ops, parallel
+    from semstereo_tpu_torch.cli import evaluate as cli_evaluate
+    from semstereo_tpu_torch.config import PRESETS, ParallelConfig
+
+    device = parallel.init_process_group("cuda", backend="gloo")
+    mesh = parallel.make_mesh(-1, DISP, SPACE)
+    # (a)
+    res = {"train": split_step(ops, agreement_cfg().replace(
+        parallel=ParallelConfig(disp=DISP, space=SPACE)), mesh, device)}
+    # (b)
+    model = seeded_model(PRESETS["us3d_stage2"], seed=0, mesh=mesh).to(device, PATH_DTYPE)
+    left, right = (row_slab(t, mesh).to(device, PATH_DTYPE) for t in stereo_pair(1024, 8, 0))
+    rec = eval_records(model, left, right)
+    reset_counts(ops)
+    times = []
+    for _ in range(SPACE_TIMED):
+        t0 = time.perf_counter()
+        model(left, right)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    res["eval"] = dict(records=rec, ms=times, launches=counts(ops), rows=rows_launched(ops),
+                       planes=planes(ops))
+    del model
+    model = seeded_model(every_plane(PRESETS["us3d_stage2"]), seed=0, mesh=mesh).to(device)
+    left, right = (row_slab(t, mesh).to(device) for t in stereo_pair(1024, 8, 0))
+    res["eval_fp32_1024"] = model(left, right)["disp"][0].cpu()
+    del model
+    # (d)
+    res["train_1024"] = train_1024_step(ops, device, mesh)
+    # (c): cli.train, then cli.evaluate of the run's checkpoint
+    res["cli"] = recorded_cli_train(ops, cli_argv)
+    eval_steps = []
+    with instrumented_steps(ops, eval_steps):
+        res["evaluate"] = dict(results=cli_evaluate.main(evaluate_argv(cli_argv)),
+                               steps=eval_steps)
+    torch.save(res, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def dds_step_worker(out_path: str) -> None:
+    """One of the eight processes of the disp x space phase's (e), gloo on
+    CUDA tensors: the agreement step at data 2 x disp 2 x space 2."""
+    from semstereo_tpu_torch import ops, parallel
+    from semstereo_tpu_torch.config import ParallelConfig
+
+    device = parallel.init_process_group("cuda", backend="gloo")
+    mesh = parallel.make_mesh(2, DISP, SPACE)
+    res = split_step(ops, agreement_cfg().replace(
+        parallel=ParallelConfig(data=2, disp=DISP, space=SPACE)), mesh, device)
+    torch.save(res, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def evaluate_argv(cli_argv: list[str]) -> list[str]:
+    """``cli.evaluate``'s arguments for the checkpoint of the ``cli.train``
+    run of ``cli_argv``: its test list, test batch, device and parallel
+    flags."""
+    keep = ("--preset", "--datapath", "--testlist", "--device", "--disp-parallel",
+            "--space-parallel")
+    argv = []
+    for flag in keep:
+        if flag in cli_argv:
+            argv += [flag, cli_argv[cli_argv.index(flag) + 1]]
+    return [*argv, "--batch-size", cli_argv[cli_argv.index("--test-batch-size") + 1],
+            "--loadckpt", cli_argv[cli_argv.index("--logdir") + 1]]
+
+
+def topk_membership(samples: torch.Tensor, planes: int) -> torch.Tensor:
+    """[B, planes, H, W]: whether each /4 plane is among a pixel's top-k
+    choice (``samples`` [B, k, H, W], the symmetric range's disparities)."""
+    ind = (samples + planes // 2).long().movedim(1, -1)
+    return torch.nn.functional.one_hot(ind, planes).sum(-2).movedim(-1, 1) > 0
+
+
+def run_disp_space_parallel(ops, tmp: str, train: dict, refs: dict, space: dict) -> dict:
+    """The disp x space phase (docstring, item 14): the four processes of
+    disp 2 x space 2, then the eight of data 2 x disp 2 x space 2, against
+    the one-process ``refs`` (``split_references``).  The one-process
+    epoch of (c) is the trainer phase's stage 2 in ``tmp/stage2``; the
+    peak memory of the train step is held beside the train path's and the
+    space phase's."""
+    from semstereo_tpu_torch.cli import evaluate as cli_evaluate
+    from semstereo_tpu_torch.cli import train as cli_train
+    from semstereo_tpu_torch.parallel import Mesh
+    from semstereo_tpu_torch.train import checkpoint as ckpt
+    from semstereo_tpu_torch.train import init_state
+    from semstereo_tpu_torch.train.trainer import Trainer
+
+    script = os.path.abspath(__file__)
+    want, one = refs["want"], refs["one"]
+    world = DISP * SPACE
+    root = f"{tmp}/data"
+    cli_argv = ["--preset", "us3d_stage2", "--datapath", root, "--trainlist",
+                f"{root}/train.txt", "--testlist", f"{root}/test.txt", "--loadckpt",
+                f"{tmp}/stage1", "--epochs", "1", "--save-freq", "1", "--compute-dtype",
+                "bfloat16", "--batch-size", str(TRAIN_BATCH), "--test-batch-size",
+                str(TRAIN_BATCH), "--num-workers", str(TRAINER_WORKERS), "--device", "cuda",
+                "--logdir", f"{tmp}/disp_space_run", "--disp-parallel", str(DISP),
+                "--space-parallel", str(SPACE)]
+    port = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+            "WORLD_SIZE": str(world)}
+    t0 = time.perf_counter()
+    spawn([([script, "--worker", "disp-space", f"{tmp}/disp_space{r}.pt", *cli_argv],
+            dict(port, RANK=str(r), LOCAL_RANK="0")) for r in range(world)], DP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(f"{tmp}/disp_space{r}.pt", weights_only=False) for r in range(world)]
+    # rank = disp_index * space + space_index; the first SPACE hold disp index 0
+    meshes = [Mesh(data=1, disp=DISP, space=SPACE, disp_index=r // SPACE, space_index=r % SPACE)
+              for r in range(world)]
+    failures = []
+    d8, r8 = 16, 32  # the agreement step's /8 planes and rows
+    # (a)
+    tr = [r["train"] for r in ranks]
+    agreement, ok = step_agreement(tr[0]["record"], want)
+    res = {"wall_s": wall, "train": dict(
+        size=256, dtype="float32", global_batch=2, ms_per_step=[t["ms"] for t in tr],
+        launches=[t["launches"] for t in tr], planes=[t["planes"] for t in tr],
+        rows=[t["rows"] for t in tr], ranks_equal=all(t["ranks_equal"] for t in tr),
+        **agreement)}
+    if not ok:
+        failures.append("the disp=2 x space=2 step disagrees with the one-process step")
+    if not res["train"]["ranks_equal"]:
+        failures.append("the disp=2 x space=2 processes' gradients or parameters differ")
+    slab = {"K2": d8 // DISP, "K4": d8 // DISP}, {"K2": r8 // SPACE, "K4": r8 // SPACE}
+    if any(t["launches"] != TRAIN_LAUNCHES or (t["planes"], t["rows"]) != slab for t in tr):
+        failures.append("disp=2 x space=2 train launches, planes or rows")
+    # (b)
+    ev = [r["eval"] for r in ranks]
+    keys = ("label", "disp", "att", "cost", "samples")
+    got = {k: torch.cat([e["records"][k] for e in ev[:SPACE]],
+                        dim=1 if k in ("label", "disp") else 2) for k in keys}
+    ranks_equal = all(torch.equal(ev[s]["records"][k], ev[p * SPACE + s]["records"][k])
+                      for p in range(1, DISP) for s in range(SPACE) for k in keys)
+    same = (got["samples"] == one["samples"]).all(dim=1)  # [B, H4, W4]
+    cost_diff = (got["cost"] - one["cost"]).abs().amax(dim=1)[same]
+    disp_diff = (got["disp"] - one["disp"]).abs()
+    # every process's rows in fp32 (each disp group's processes hold the
+    # same rows), against one process's
+    fp32_1024 = torch.stack([
+        (torch.cat([r["eval_fp32_1024"] for r in ranks[p * SPACE:(p + 1) * SPACE]], 1).double()
+         - refs["one_fp32_1024_every"].double()).abs()[:, :, 32:] for p in range(DISP)])
+    fp32_group = max(float((ranks[s]["eval_fp32_1024"] - ranks[p * SPACE + s]["eval_fp32_1024"])
+                           .abs().max()) for p in range(1, DISP) for s in range(SPACE))
+    bf16_split = float(disp_diff[:, :, 32:].double().median())
+    bf16_level = float((one["disp"].double() - refs["one_fp32_1024"].double())
+                       .abs()[:, :, 32:].median())
+    d4 = one["att"].shape[1] * 2  # /4 planes: the /8 volume's, resized x2
+    row_bands = boundary_bands(same, same.shape[1] // SPACE, SPACE_BAND_ROWS)
+    plane_same = topk_membership(got["samples"], d4) == topk_membership(one["samples"], d4)
+    plane_bands = boundary_bands(plane_same, d4 // DISP, DISP_SPACE_PLANE_BAND)
+    per_request = [{k: v // SPACE_TIMED for k, v in e["launches"].items()} for e in ev]
+    slabs = [({k: v // SPACE_TIMED for k, v in e["planes"].items()},
+              {k: v // SPACE_TIMED for k, v in e["rows"].items()}) for e in ev]
+    res["eval"] = dict(
+        size=1024, dtype="bfloat16", note="four processes share one card; gloo stages the "
+        "halos, gathers and reductions through the host: no speed of the split",
+        ms_per_pair=[e["ms"] for e in ev],
+        ms_per_pair_median=[statistics.median(e["ms"]) for e in ev], launches=per_request,
+        planes_rows_per_request=slabs, ranks_equal=ranks_equal,
+        label_max_rel=max_rel(got["label"], one["label"]),
+        att_max_rel=max_rel(got["att"], one["att"]),
+        cost_max_rel_same_topk=float(cost_diff.max() / one["cost"].abs().max())
+        if same.any() else float("inf"),
+        same_topk_share=float(same.double().mean()),
+        disp_median_abs_px=float(disp_diff.median()),
+        peak_bytes=[e["records"]["peak_bytes"] for e in ev],
+        one_process_peak_bytes=one["peak_bytes"],
+        fp32_1024_every_plane=dict(median=float(fp32_1024.median()),
+                                   max=float(fp32_1024.max()),
+                                   disp_group_max_abs_px=fp32_group),
+        disp_median_abs_px_cols32=bf16_split, one_process_bf16_vs_fp32_median_px=bf16_level,
+        topk_differs_by_row_band=row_bands, topk_membership_differs_by_plane_band=plane_bands)
+    e = res["eval"]
+    if not (max(e["label_max_rel"], e["att_max_rel"]) <= BF16_REL
+            and e["cost_max_rel_same_topk"] <= SPACE_COST_REL
+            and e["same_topk_share"] >= SPACE_SAME_TOPK and ranks_equal):
+        failures.append("the disp=2 x space=2 eval disagrees with the one-process run")
+    if any(p != EVAL_LAUNCHES for p in per_request) or any(
+            sl != ({"K2": 16 // DISP, "K4": 0}, {"K2": 128 // SPACE, "K4": 0}) for sl in slabs):
+        failures.append("disp=2 x space=2 eval launches, planes or rows")
+    if not (fp32_1024.median() <= FUSE_FP32_BOUNDS["median"]
+            and fp32_1024.max() <= FUSE_FP32_BOUNDS["max"]):
+        failures.append("the disp=2 x space=2 fp32 1024x1024 eval's disparity disagrees with "
+                        "one process's")
+    if not bf16_split <= SPACE_BF16_LEVEL * bf16_level:
+        failures.append(f"the disp=2 x space=2 bf16 disparity is {bf16_split} px from one "
+                        f"process's (median), beyond {SPACE_BF16_LEVEL} x the bf16 level "
+                        f"{bf16_level}")
+    for name, bands in (("row", row_bands), ("plane", plane_bands)):
+        if not bands["boundary"] <= bands["others_median"] + SPACE_BAND_EXCESS:
+            failures.append(f"the top-k choices differ from one process's in "
+                            f"{bands['boundary']} of the {name} slab boundary's band, against "
+                            f"{bands['others_median']} elsewhere")
+    # (d)
+    t1024 = [r["train_1024"] for r in ranks]
+    res["train_1024"] = dict(
+        size=1024, batch=TRAIN_BATCH, dtype="bfloat16", ms=[t["ms"] for t in t1024],
+        peak_bytes=[t["peak_bytes"] for t in t1024],
+        one_process_peak_bytes=train["max_memory_allocated_bytes"],
+        space2_peak_bytes=space["train_1024"]["peak_bytes"],
+        space4_peak_bytes=space["space4"]["train_1024"]["peak_bytes"],
+        launches=[t["launches"] for t in t1024], planes=[t["planes"] for t in t1024],
+        rows=[t["rows"] for t in t1024], loss=[t["loss"] for t in t1024])
+    if any(t["launches"] != TRAIN_LAUNCHES or t["planes"] != {"K2": 8, "K4": 8}
+           or t["rows"] != {"K2": 64, "K4": 64} or not np.isfinite(t["loss"]) for t in t1024):
+        failures.append("the disp=2 x space=2 1024x1024 train step's launches, planes, rows "
+                        "or loss")
+    # (c)
+    run = f"{tmp}/disp_space_run"
+    sd = [torch.load(f"{tmp}/{r}/checkpoint_000000.pt", weights_only=True)["model"]
+          for r in ("stage2", "disp_space_run")]
+    moved = torch.cat([(sd[1][n] - p).abs().ravel() for n, p in sd[0].items()
+                       if "running_" not in n]) / agreement_cfg().optim.lr
+    cli = [r["cli"] for r in ranks]
+    logs = []
+    for r in ("stage2", "disp_space_run"):
+        with open(f"{tmp}/{r}/log.log") as f:
+            logs.append(f.read())
+    first_loss = [float(re.search(r"Epoch 0/1, Iter 0/\d+, loss = (\S+),", text).group(1))
+                  for text in logs]
+    # one process's eval of the run's checkpoint (as the run evaluated, in
+    # bf16, and as cli.evaluate does, in the preset's fp32), and its first batch
+    one_cfg, _ = cli_train.parse_config(cli_argv[:cli_argv.index("--disp-parallel")])
+    trainer = Trainer(one_cfg, device="cuda")
+    trainer.state = ckpt.restore_checkpoint(run, init_state(one_cfg))
+    want_eval = trainer.evaluate()
+    trainer.train_loader.set_epoch(0)
+    want_rows = trainer.train_loader._indices().tolist()
+    want_batch = next(iter(trainer.train_loader))
+    del trainer
+    eval_argv = evaluate_argv(cli_argv)
+    want_evaluate = cli_evaluate.main(eval_argv[:eval_argv.index("--disp-parallel")]
+                                      + eval_argv[eval_argv.index("--batch-size"):])
+    batch_equal = all(
+        set(c["first_batch"]) == {"left", "right", "disparity", "disparity_4", "label"}
+        and all(torch.equal(v, row_slab(torch.from_numpy(np.asarray(want_batch[k])), m))
+                for k, v in c["first_batch"].items())
+        for c, m in zip(cli, meshes))
+
+    def rel(results, reference):
+        return {k: max(abs(r.get(k, np.inf) - v) / max(abs(v), 1.0) for r in results)
+                for k, v in reference.items()}
+
+    eval_rel = rel([c["history"][-1]["eval"] for c in cli], want_eval)
+    evaluate_rel = rel([r["evaluate"]["results"] for r in ranks], want_evaluate)
+    res["cli"] = dict(
+        ms_per_step=[[ms for kind, ms, _ in c["steps"] if kind == "train"] for c in cli],
+        param_diff_over_lr_max=float(moved.max()), param_diff_over_lr_median=float(moved.median()),
+        steps=[ln for ln in logs[1].splitlines() if ln.startswith("Epoch 0/1, Iter")],
+        one_steps=[ln for ln in logs[0].splitlines() if ln.startswith("Epoch 0/1, Iter")],
+        first_loss_rel=abs(first_loss[1] - first_loss[0]) / abs(first_loss[0]),
+        first_batch_equal=batch_equal, eval=cli[0]["history"][-1]["eval"],
+        one_process_eval_of_checkpoint=want_eval, eval_rel_max=max(eval_rel.values()),
+        evaluate=ranks[0]["evaluate"]["results"], one_process_evaluate=want_evaluate,
+        evaluate_rel_max=max(evaluate_rel.values()))
+    for i, r in enumerate(ranks):
+        for kind, want_l, steps in (("train", TRAIN_LAUNCHES, r["cli"]["steps"]),
+                                    ("eval", EVAL_LAUNCHES, r["cli"]["steps"]),
+                                    ("eval", EVAL_LAUNCHES, r["evaluate"]["steps"])):
+            got_l = [l for k, _, l in steps if k == kind]
+            if not got_l or any(l != want_l for l in got_l):
+                failures.append(f"disp=2 x space=2 CLI rank {i} {kind} launches {got_l}")
+    if any(c["rows"] != want_rows or c["shard"] != (0, 1) for c in cli) or not batch_equal:
+        failures.append(f"disp=2 x space=2 CLI rows {[(c['shard'], c['rows']) for c in cli]}, "
+                        f"one process's {want_rows}; first batch cut by height equal: "
+                        f"{batch_equal}")
+    if sd[0].keys() != sd[1].keys():
+        failures.append("the disp=2 x space=2 CLI checkpoint's leaves differ from one process's")
+    if not res["cli"]["first_loss_rel"] <= DISP_CLI_LOSS_REL:
+        failures.append(f"the disp=2 x space=2 CLI first loss {first_loss[1]} against "
+                        f"{first_loss[0]}")
+    for name, got_rel in (("eval epoch", eval_rel), ("cli.evaluate", evaluate_rel)):
+        if not all(np.isfinite(v) and v <= SPACE_CLI_EVAL_REL for v in got_rel.values()):
+            failures.append(f"the disp=2 x space=2 {name} against one process's of its "
+                            f"checkpoint: {got_rel}")
+    # (e)
+    world8 = 2 * DISP * SPACE
+    port = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+            "WORLD_SIZE": str(world8)}
+    t0 = time.perf_counter()
+    spawn([([script, "--worker", "dds-step", f"{tmp}/dds{r}.pt"],
+            dict(port, RANK=str(r), LOCAL_RANK="0")) for r in range(world8)], DP_TIMEOUT)
+    dds = [torch.load(f"{tmp}/dds{r}.pt", weights_only=False) for r in range(world8)]
+    agreement, ok = step_agreement(dds[0]["record"], want)
+    res["data2_disp2_space2"] = dict(
+        wall_s=time.perf_counter() - t0, size=256, dtype="float32", global_batch=2,
+        ms_per_step=[t["ms"] for t in dds], launches=[t["launches"] for t in dds],
+        planes=[t["planes"] for t in dds], rows=[t["rows"] for t in dds],
+        ranks_equal=all(t["ranks_equal"] for t in dds), **agreement)
+    if not ok or not res["data2_disp2_space2"]["ranks_equal"]:
+        failures.append("the data=2 x disp=2 x space=2 step disagrees with the one-process step "
+                        "or between its processes")
+    if any(t["launches"] != TRAIN_LAUNCHES or (t["planes"], t["rows"]) != slab for t in dds):
+        failures.append("data=2 x disp=2 x space=2 train launches, planes or rows")
+    log("disp_space_parallel", json.dumps(res))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
+def curve_cfg(dtype: str, seed: int):
+    """The JAX package's tiny training config (tests/test_train_integration.py)
+    in ``dtype``, its fp32 master seeded by ``seed``."""
+    from semstereo_tpu_torch.config import (
+        DataConfig,
+        LossConfig,
+        ModelConfig,
+        OptimConfig,
+        TrainConfig,
+    )
+
+    return TrainConfig(model=ModelConfig(maxdisp=16, topk=4, att_window1=(1, 2, 2),
+                                         att_window2=(1, 2, 2)),
+                       data=DataConfig(batch_size=2), optim=OptimConfig(lr=1e-3),
+                       loss=LossConfig(use_seg=True, use_lrsc=True), compute_dtype=dtype,
+                       seed=seed)
+
+
+def curve_batches() -> list:
+    """The 4 batches of 2 of the 8 synthetic 32x32 samples, in order, on the card."""
+    from semstereo_tpu_torch.data import SyntheticStereoDataset
+
+    ds = SyntheticStereoDataset(8, 32, 32, 16)
+    return [ds.batch(i, 2, "cuda") for i in range(0, len(ds), 2)]
+
+
+def curve_worker(out_path: str, dtype: str, seed: str) -> None:
+    """One curve of the bf16 curves phase: ``BF16_CURVE_STEPS`` steps of
+    the tiny config in ``dtype`` from the fp32 master of ``seed``; the
+    losses and the launches go to ``out_path``."""
+    from semstereo_tpu_torch import ops
+    from semstereo_tpu_torch.train import init_state, make_train_step
+
+    cfg = curve_cfg(dtype, int(seed))
+    batches = curve_batches()
+    state = init_state(cfg)
+    step = make_train_step(cfg)
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    losses = [float(step(state, batches[i % len(batches)])["loss"])
+              for i in range(BF16_CURVE_STEPS)]
+    torch.save(dict(losses=losses, launches=counts(ops), s=time.perf_counter() - t0), out_path)
+
+
+@contextlib.contextmanager
+def held_against_plain(records: list):
+    """Within the block, every call of K1 (``conv3d_bn_act``), K3's dw, K2
+    and K4 also runs its plain version on the same inputs and appends
+    (kernel, input shape, max |kernel - plain| / max |plain|) to
+    ``records``; the launch counts are left as they were."""
+    from semstereo_tpu_torch.ops import conv3d as c3
+    from semstereo_tpu_torch.ops import cost_volume as cv
+
+    def dw_plain(x, gy, stride):
+        return c3.conv3d_weight_grad_plain(x.float(), gy.float(), stride).to(x.dtype)
+
+    pairs = {"K1": (c3, "conv3d_bn_act", c3.conv3d_bn_act_plain),
+             "K3-dw": (c3, "conv3d_weight_grad", dw_plain),
+             "K2": (cv, "gwc_volume_norm_fwd", cv.gwc_volume_norm_plain),
+             "K4": (cv, "gwc_volume_norm_bwd", cv.gwc_volume_norm_bwd_plain)}
+    saved = {name: getattr(mod, attr) for name, (mod, attr, _) in pairs.items()}
+
+    def held(name, kernel, plain):
+        def run(*a, **k):
+            got, want = kernel(*a, **k), plain(*a, **k)
+            outs = zip(*(((got,), (want,)) if isinstance(got, torch.Tensor) else (got, want)))
+            records.append((name, list(a[0].shape), max(max_rel(g, w) for g, w in outs)))
+            return got
+        # the kernels count their launches (and planes, rows) on the name
+        # they are called by
+        run.__dict__.update(dict.fromkeys(vars(kernel), 0))
+        return run
+
+    for name, (mod, attr, plain) in pairs.items():
+        setattr(mod, attr, held(name, saved[name], plain))
+    try:
+        yield records
+    finally:
+        for name, (mod, attr, _) in pairs.items():
+            setattr(mod, attr, saved[name])
+
+
+def run_bf16_curves(ops) -> dict:
+    """bf16 against fp32 over many steps (docstring, item 15): each kernel
+    call of one bf16 step of the tiny config against its plain version
+    (``REL_TOL``); then, for each seed of ``BF16_CURVE_SEEDS``, curves of
+    ``BF16_CURVE_STEPS`` steps from the seed's fp32 master over the 4
+    batches of 8 synthetic samples in order, in bf16, in fp32 and in fp32
+    again (the card's own spread), each a process of its own
+    (``chip_smoke.py --worker curve ...``, all at once), every step
+    launching ``TRAIN_LAUNCHES`` and every loss finite.  JAX's two bounds
+    (the mean bf16 tail within ``BF16_CURVE_REL`` of the mean fp32 tail,
+    each tail below ``BF16_CURVE_FALL`` of its first loss) are computed and
+    printed beside the fp32 repeat's, and do not fail the phase: see
+    ``BF16_CURVE_SEEDS``."""
+    from semstereo_tpu_torch.train import init_state, make_train_step
+
+    failures, records = [], []
+    cfg = curve_cfg("bfloat16", BF16_CURVE_SEEDS[0])
+    state = init_state(cfg)
+    with held_against_plain(records):
+        make_train_step(cfg)(state, curve_batches()[0])
+    worst = {}
+    for name, shape, err in records:
+        key = f"{name} {shape}"
+        worst[key] = max(worst.get(key, 0.0), err)
+    if not records or max(worst.values()) > REL_TOL[torch.bfloat16]:
+        failures.append(f"a kernel disagrees with its plain version at the tiny step: {worst}")
+    del state
+    script = os.path.abspath(__file__)
+    kinds = (("float32", "float32"), ("float32_repeat", "float32"), ("bfloat16", "bfloat16"))
+    runs = [(kind, dt, seed) for seed in BF16_CURVE_SEEDS for kind, dt in kinds]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn([([script, "--worker", "curve", f"{tmp}/curve{i}.pt", dt, str(seed)], {})
+               for i, (_, dt, seed) in enumerate(runs)], DP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        curves = [torch.load(f"{tmp}/curve{i}.pt") for i in range(len(runs))]
+    res = {"kernel_vs_plain_max_rel": worst, "wall_s": wall, "curves": []}
+    tails, falls = {kind: [] for kind, _ in kinds}, []
+    for (kind, dt, seed), c in zip(runs, curves):
+        losses = c["losses"]
+        tail = statistics.mean(losses[-BF16_CURVE_TAIL:])
+        tails[kind].append(tail)
+        falls.append(tail / losses[0])
+        res["curves"].append(dict(kind=kind, seed=seed, first=losses[0], last=losses[-1],
+                                  tail_mean=tail, every_20=losses[::20], s=c["s"],
+                                  launches=c["launches"]))
+        if c["launches"] != {k: v * BF16_CURVE_STEPS for k, v in TRAIN_LAUNCHES.items()}:
+            failures.append(f"{kind} seed {seed} curve launches {c['launches']}")
+        if not all(np.isfinite(losses)):
+            failures.append(f"non-finite {kind} losses at seed {seed}")
+    f32 = tails["float32"]
+    res["tail_ratio_per_seed"] = {kind: [t / f for t, f in zip(tails[kind], f32)]
+                                  for kind in ("bfloat16", "float32_repeat")}
+    res["tail_ratio"] = {kind: statistics.mean(tails[kind]) / statistics.mean(f32)
+                         for kind in ("bfloat16", "float32_repeat")}
+    res["jax_bounds"] = dict(
+        tail_rel=BF16_CURVE_REL, fall=BF16_CURVE_FALL, largest_fall=max(falls),
+        bf16_tail_within=abs(res["tail_ratio"]["bfloat16"] - 1.0) < BF16_CURVE_REL,
+        fp32_repeat_tail_within=abs(res["tail_ratio"]["float32_repeat"] - 1.0) < BF16_CURVE_REL,
+        every_curve_fell=max(falls) < BF16_CURVE_FALL)
+    log("bf16_curves", json.dumps(res))
     if failures:
         raise AssertionError("; ".join(failures))
     return res
@@ -2033,8 +2660,11 @@ def fp32_without_tf32() -> None:
 
 def worker(argv: list[str]) -> int:
     """``--worker dp-step OUT``, ``--worker dp-cli OUT CLI-ARGS...``,
-    ``--worker disp OUT CLI-ARGS...`` or ``--worker space OUT CLI-ARGS...``:
-    one process of the data-, disp- or space-parallel phase."""
+    ``--worker disp OUT CLI-ARGS...``, ``--worker space OUT CLI-ARGS...``,
+    ``--worker space4 OUT``, ``--worker disp-space OUT CLI-ARGS...``,
+    ``--worker dds-step OUT`` or ``--worker curve OUT DTYPE SEED``: one
+    process of the data-, disp-, space- or disp x space-parallel phase, or
+    one curve of the bf16 curves phase."""
     if not torch.cuda.is_available():
         log("no CUDA device")
         return 1
@@ -2046,6 +2676,14 @@ def worker(argv: list[str]) -> int:
         disp_worker(out, argv[2:])
     elif kind == "space":
         space_worker(out, argv[2:])
+    elif kind == "space4":
+        space4_worker(out)
+    elif kind == "disp-space":
+        disp_space_worker(out, argv[2:])
+    elif kind == "dds-step":
+        dds_step_worker(out)
+    elif kind == "curve":
+        curve_worker(out, *argv[2:4])
     else:
         dp_cli_worker(out, argv[2:])
     return 0
@@ -2091,6 +2729,8 @@ def main() -> int:
     t = phase("remat", t)
     run_train_agreement(ops)
     t = phase("train agreement", t)
+    run_bf16_curves(ops)
+    t = phase("bf16 curves", t)
     with tempfile.TemporaryDirectory() as tmp:
         run_trainer(ops, tmp, write_dataset(f"{tmp}/data"))
         t = phase("trainer", t)
@@ -2098,8 +2738,11 @@ def main() -> int:
         t = phase("data parallel", t)
         run_disp_parallel(ops, tmp)
         t = phase("disp parallel", t)
-        run_space_parallel(ops, tmp, path, train)
-        phase("space parallel", t)
+        refs = split_references()
+        space = run_space_parallel(ops, tmp, path, train, refs)
+        t = phase("space parallel", t)
+        run_disp_space_parallel(ops, tmp, train, refs, space)
+        phase("disp x space parallel", t)
 
     kernels = []
     meta = {

@@ -18,10 +18,15 @@ N`` splits the cost volumes' planes over groups of N consecutive processes
 
 ``--space-parallel N`` splits the images' rows over groups of N
 consecutive processes (world = data x space; ``--data-parallel -1`` is
-world / N; each process computes its slab of rows of every layer, and
-``--disp-parallel`` must then stay 1):
+world / N; each process computes its slab of rows of every layer):
 
     torchrun --nproc-per-node 2 -m semstereo_tpu_torch.cli.train --preset ... --space-parallel 2
+
+Both together split each process's rows and its planes of the volumes
+(world = data x disp x space, the JAX package's mesh):
+
+    torchrun --nproc-per-node 4 -m semstereo_tpu_torch.cli.train --preset ... \
+        --disp-parallel 2 --space-parallel 2
 
 ``--remat`` and ``--pretrained-backbone`` are the model's ``remat`` and
 ``pretrained_backbone``.

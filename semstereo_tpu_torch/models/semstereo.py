@@ -56,6 +56,16 @@ K4) correlates along W only, so each process builds it from its rows, with
 no halo; ``warp_strength``, ``disparity_warp``, the soft-argmin, the
 variance and the top-k choices are per row or per pixel.  The forward
 checks the slab's rows against ``parallel.check_space_rows``.
+
+Both together (a mesh with disp and space above 1, JAX's ``shard_disp``
+with ``shard_spatial``): each process holds its slab of rows of
+everything, and of the cost volumes one slab of planes of those rows.  K2
+builds its planes of its rows; the volume convs take halos along D and H
+(``nn/layers.py``); ``gather_planes`` of ``cost_att`` and of ``cost``
+runs within the row slab's disp group, so the trilinear resize, the
+propagations and the top-k regression run on every plane of the row slab,
+with row halos; the top-k choice is broadcast within that disp group, and
+the stage-2 plane slab is cut from the row slab's choice.
 """
 
 from __future__ import annotations
@@ -198,9 +208,6 @@ class SemStereo(nn.Module):
         if self.mesh is not None:
             check_disp_planes(volume_planes(maxdisp, symmetric, topk, att_weights_only),
                               mesh.disp)
-        if mesh is not None and mesh.split and mesh.rows:
-            raise ValueError(f"disp={mesh.disp} with space={mesh.space}: disparity and spatial "
-                             "parallelism together are not ported yet")
         self._build()
         split_rows(self, mesh)
 

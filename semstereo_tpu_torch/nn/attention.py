@@ -17,7 +17,10 @@ On row slabs (``layers.split_rows``) the windows stay local: a slab of the
 bottleneck holds a whole number of windows along H
 (``parallel.check_space_rows`` refuses any other split), so each process
 attends within its own windows and no window spans two slabs.  The port
-does not gather the bottleneck along H.
+does not gather the bottleneck along H.  Under both splits, x is this
+process's slab of planes of its row slab: the planes are gathered over the
+disp group, whose processes hold the same rows, and the windows along H
+stay local to the row slab.
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ of planes: each conv reads its neighbours' edge planes (``nn/layers.py``),
 and the attention gathers the bottleneck whole (``nn/attention.py``).  On
 row slabs (``layers.split_rows``) each conv and deconv reads its
 neighbours' edge rows along H (axis 2), and the attention keeps to the
-slab's windows.
+slab's windows.  Under both, each conv takes its halo planes, then its
+halo rows; the 1x1x1 redirs take the slab as it is.
 """
 
 from __future__ import annotations

@@ -48,7 +48,15 @@ kernel; every other conv and deconv stays on ``F.conv*``.
   2n + 1; the k3 s2 p1 op1 volume deconv on [slab, above].  The halo rows
   are zeros past the image, as the conv's own padding.  1x1 convs take the
   slab as it is.
-* Both slabs take one path: the volume convs go to K1 (and their backward
+* Both at once (a mesh that splits the planes, on a module split by rows):
+  a volume conv's input is this process's slab of planes of its slab of
+  rows.  It takes its halo planes over the disp group first, then its halo
+  rows over the space group of that D-haloed slab: the neighbour along H
+  holds the same planes and sends rows that already carry their D halo, so
+  the corner blocks (a plane and a row beyond the slab) come with no third
+  exchange.  Each axis keeps its own rule above (a conv's index along D
+  depends on D alone), and the output is narrowed along both.
+* Every slab takes one path: the volume convs go to K1 (and their backward
   to K3) on the haloed slab, with the extra output planes or rows dropped.
   The haloed conv is one autograd node (``_SlabConv``; the eval kernel
   with its folded BN apart) that keeps the slab and its few halo rows for
@@ -230,7 +238,7 @@ def conv_cl(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     rows = rows_of(conv)
     if rows is None or conv.kernel_size[-2] == 1:
         return _conv(conv, x)
-    return _SlabConv.apply(x, conv.weight, conv.bias, conv, rows.space_part, x.dim() - 3)
+    return _SlabConv.apply(x, conv.weight, conv.bias, conv, ((rows.space_part, x.dim() - 3),))
 
 
 def _kernel_train(conv: nn.Module) -> bool:
@@ -249,36 +257,42 @@ def _conv_nc(conv: nn.Module, x: torch.Tensor, weight, bias) -> torch.Tensor:
 
 
 class _SlabConv(torch.autograd.Function):
-    """A conv on this process's slab ``x`` (channels-last) of planes or rows
-    along ``axis``, with its halo (``_slab_rule``), as one node: it keeps ``x`` and the halo rows, not the
-    haloed copy, and builds that again in the backward.  The train-mode
-    volume convs run K1 forward and K3 backward (``ops.conv3d``); the rest
-    ``aten.convolution`` and its backward.  The halo rows' cotangents go
-    back to their owners (``parallel.add_halo_grads``)."""
+    """A conv on this process's slab ``x`` (channels-last), split along one
+    axis or two: ``splits`` is an ordered tuple of (``parallel.Part``,
+    axis), the planes (axis 1, over the disp group) before the rows (over
+    the space group).  The forward takes the halo along each axis in turn
+    (``_slab_rule``), the later axis's of the tensor already haloed along
+    the earlier, so a neighbour along H sends rows that hold their D halo
+    and the corner blocks come with them; it narrows the output along every
+    axis.  One node: it keeps ``x`` and the halo blocks, not the haloed
+    copy, and builds that again in the backward.  The train-mode volume
+    convs run K1 forward and K3 backward (``ops.conv3d``); the rest
+    ``aten.convolution`` and its backward.  The backward is the adjoint in
+    reverse order: the halo rows' cotangents along the last axis go back to
+    their owners (``parallel.add_halo_grads``), which gives the cotangent
+    of the tensor haloed along the earlier axes, and so on to ``x``."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, conv, part, axis):
-        front, below, above, keep = _slab_rule(conv, x.shape[axis], axis)
-        lo, hi = halo_rows(x, part, axis, below, above)
-        xp = _assemble(x, lo, hi, front, axis)
+    def forward(ctx, x, weight, bias, conv, splits):
+        xp, rules, halos = _haloed(conv, x, splits)
         if _kernel_train(conv):
             y = conv3d_forward(xp, weight, conv.stride[0])
         else:
             y = _conv_nc(conv, xp, weight, bias)
-        ctx.conv, ctx.part, ctx.axis, ctx.rule, ctx.full = conv, part, axis, (
-            front, below, above, keep), y.shape
-        ctx.save_for_backward(x, lo, hi, weight, bias)
-        return y.narrow(axis, *keep)
+        ctx.conv, ctx.splits, ctx.rules, ctx.full = conv, splits, rules, y.shape
+        ctx.save_for_backward(x, weight, bias, *halos)
+        return _kept(y, splits, rules)
 
     @staticmethod
     def backward(ctx, gy):
-        x, lo, hi, weight, bias = ctx.saved_tensors
-        conv, axis = ctx.conv, ctx.axis
-        front, below, above, keep = ctx.rule
+        x, weight, bias, *halos = ctx.saved_tensors
+        conv, splits, rules = ctx.conv, ctx.splits, ctx.rules
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        xp = _assemble(x, lo, hi, front, axis)
+        xp = x
+        for i, ((_, axis), rule) in enumerate(zip(splits, rules)):
+            xp = _assemble(xp, halos[2 * i], halos[2 * i + 1], rule[0], axis)
         g = gy.new_zeros(ctx.full)
-        g.narrow(axis, *keep).copy_(gy)
+        _kept(g, splits, rules).copy_(gy)
         gb = None
         if _kernel_train(conv):
             gxp, gw = conv3d_backward(xp, weight, g, conv.stride[0], need_x, need_w)
@@ -294,11 +308,13 @@ class _SlabConv(torch.autograd.Function):
                 gxp = gxp.permute(0, *range(2, nd + 2), 1)
         gx = None
         if need_x:
-            n = x.shape[axis]
-            gx = add_halo_grads(gxp.narrow(axis, front + below, n),
-                                gxp.narrow(axis, front, below),
-                                gxp.narrow(axis, front + below + n, above), ctx.part, axis)
-        return gx, gw, gb, None, None, None
+            gx = gxp
+            for (part, axis), (front, below, above, _) in reversed(list(zip(splits, rules))):
+                n = x.shape[axis]
+                gx = add_halo_grads(gx.narrow(axis, front + below, n),
+                                    gx.narrow(axis, front, below),
+                                    gx.narrow(axis, front + below + n, above), part, axis)
+        return gx, gw, gb, None, None
 
 
 def _is_k3_volume_conv(conv: nn.Module) -> bool:
@@ -350,13 +366,26 @@ def _assemble(x, lo, hi, front: int, axis: int) -> torch.Tensor:
     return torch.cat(parts, axis)
 
 
-def _halo(conv: nn.Module, x: torch.Tensor, part, axis: int):
-    """(the input the conv takes for the slab ``x`` along ``axis``, (first,
-    count) of the output rows to keep), without gradient: the eval kernel's
-    input, as ``_SlabConv`` builds it."""
-    front, below, above, keep = _slab_rule(conv, x.shape[axis], axis)
-    lo, hi = halo_rows(x, part, axis, below, above)
-    return _assemble(x, lo, hi, front, axis), keep
+def _haloed(conv: nn.Module, x: torch.Tensor, splits):
+    """(the input the conv takes for the slab ``x`` split along the axes of
+    ``splits``, haloed along each in turn, the ``_slab_rule`` of each axis,
+    the halo blocks [below, above, ...] of each), without gradient."""
+    rules, halos = [], []
+    for part, axis in splits:
+        rule = _slab_rule(conv, x.shape[axis], axis)
+        lo, hi = halo_rows(x, part, axis, rule[1], rule[2])
+        x = _assemble(x, lo, hi, rule[0], axis)
+        rules.append(rule)
+        halos += [lo, hi]
+    return x, rules, halos
+
+
+def _kept(y: torch.Tensor, splits, rules) -> torch.Tensor:
+    """The output rows of the slab within the conv's output ``y`` on the
+    haloed input (``_slab_rule``'s keep along each axis)."""
+    for (_, axis), rule in zip(splits, rules):
+        y = y.narrow(axis, *rule[3])
+    return y
 
 
 def conv_bn_act(conv: nn.Module, bn: BatchNorm | None, x: torch.Tensor,
@@ -364,26 +393,26 @@ def conv_bn_act(conv: nn.Module, bn: BatchNorm | None, x: torch.Tensor,
     """[relu](bn(conv(x))); a 3x3x3 pad-1 volume conv goes to the kernel,
     with the BN folded in eval.  With a ``mesh`` that splits the volume,
     x and the result are this process's plane slabs; on a module split by
-    rows, its row slabs (module docstring)."""
+    rows, its row slabs; under both, its plane slabs of its row slabs,
+    haloed along D, then H (module docstring)."""
     rows = rows_of(conv)
-    split = None
+    splits = []
     if mesh is not None and mesh.split and conv.kernel_size[0] > 1:
-        split = mesh.disp_part, 1
-    elif rows is not None and conv.kernel_size[-2] > 1:
-        split = rows.space_part, x.dim() - 3
+        splits.append((mesh.disp_part, 1))
+    if rows is not None and conv.kernel_size[-2] > 1:
+        splits.append((rows.space_part, x.dim() - 3))
+    splits = tuple(splits)
     kernel = _is_k3_volume_conv(conv)
     if kernel and not conv.training:  # the eval kernel, with the BN folded in
-        keep = None
-        if split is not None:
-            x, keep = _halo(conv, x, *split)
+        x, rules, _ = _haloed(conv, x, splits)
         sources = (conv.weight,) if bn is None else (
             conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)
         w, scale, shift = derived(conv, conv.weight.dtype, sources,
                                   lambda: kernel_operands(conv, bn))
         y = conv3d_bn_act(x.contiguous(), w, scale, shift, conv.stride[0], relu)
-        return y if keep is None else y.narrow(split[1], *keep)
-    if split is not None:
-        y = _SlabConv.apply(x, conv.weight, conv.bias, conv, *split)
+        return _kept(y, splits, rules)
+    if splits:
+        y = _SlabConv.apply(x, conv.weight, conv.bias, conv, splits)
     elif kernel:
         y = conv3d(x, conv.weight, conv.stride[0])
     else:

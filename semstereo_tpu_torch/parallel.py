@@ -1,5 +1,5 @@
-"""Data and disparity parallelism over processes (counterpart of
-``semstereo_tpu/parallel/mesh.py``'s ``data`` and ``disp`` axes).
+"""Data, disparity and spatial parallelism over processes (counterpart of
+``semstereo_tpu/parallel/mesh.py``'s ``(data, disp, space)`` mesh).
 
 One process per device, started as ``torchrun`` starts it: the environment
 gives ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
@@ -18,28 +18,29 @@ of the shares are summed in one flat all-reduce after the backward
 one process (no group, or a group of one) every function here is the
 identity and issues no collective.
 
-Disparity parallelism (``make_mesh``, the mesh's ``disp`` axis): the
-processes are laid out as ``make_mesh`` lays out devices, ``(data, disp)``
-in row-major order, so rank = data_index * disp + disp_index and ``disp``
-consecutive ranks form one disp group.  The processes of a group hold the
-same rows and compute everything outside the two cost-volume pipelines
-whole; each holds one slab of the volumes' planes, from the cost volume to
-the classifier's output.  ``halo_pad`` gives a 3-D conv the planes next to
-its slab, ``gather_planes`` puts the slabs back together, and
-``broadcast_from_group`` makes the group agree on the top-k planes; each
-differentiable one has its adjoint as backward.  The world-wide reductions
-above stay right: a group's processes each compute the same share of the
-loss, scaled by 1/disp through the world-summed denominators, and the
-gradient all-reduce sums the shares (and the slabs' parts) back.  Only
-all-reduce, all-gather and broadcast are used, the collectives gloo takes
-for CUDA tensors.
+The processes are laid out as ``make_mesh`` lays out devices, ``(data,
+disp, space)`` in row-major order: rank = data_index * disp * space +
+disp_index * space + space_index.  A disp group is the ``disp`` processes
+of one (data, space) pair, ``space`` ranks apart; a space group the
+``space`` consecutive processes of one (data, disp) pair.
 
-Spatial parallelism (``make_mesh``'s ``space`` axis): the layout is the JAX
-mesh's ``(data, disp, space)`` in row-major order, so rank = data_index *
-disp * space + disp_index * space + space_index and ``space`` consecutive
-ranks form one space group.  The processes of a space group load the same
-rows (dealt by data index) and each keeps its slab of rows [i * H / space,
-(i + 1) * H / space) of every key in ``SPATIAL_KEYS`` (``slab_rows``).
+Disparity parallelism (``make_mesh``'s ``disp`` axis): the processes of a
+disp group hold the same rows and compute everything outside the two
+cost-volume pipelines alike; each holds one slab of the volumes' planes,
+from the cost volume to the classifier's output.  ``halo_pad`` gives a 3-D
+conv the planes next to its slab, ``gather_planes`` puts the slabs back
+together, and ``broadcast_from_group`` makes the group agree on the top-k
+planes; each differentiable one has its adjoint as backward.  The
+world-wide reductions above stay right: a group's processes each compute
+the same share of the loss, scaled by 1/disp through the world-summed
+denominators, and the gradient all-reduce sums the shares (and the slabs'
+parts) back.  Only all-reduce, all-gather and broadcast are used, the
+collectives gloo takes for CUDA tensors.
+
+Spatial parallelism (``make_mesh``'s ``space`` axis): the processes of a
+space group load the same rows (dealt by data index) and each keeps its
+slab of rows [i * H / space, (i + 1) * H / space) of every key in
+``SPATIAL_KEYS`` (``slab_rows``).
 Nothing is replicated within a group: every process computes its rows of
 every layer, from the input images to the disparity.  Each op whose output
 row reads other rows takes its neighbours' edge rows (``halo_pad`` along
@@ -52,9 +53,18 @@ world-wide reductions stay right, as under disp: a masked mean's
 denominator is summed over the world, so each process's share covers its
 rows, and BatchNorm's statistics over the world are those of the whole
 images.  ``check_space_rows`` holds the rules a slab must keep; the JAX
-package pads an uneven shard, the port refuses it.  ``disp`` above 1 with
-``space`` above 1 is refused: it needs the volume convs haloed along two
-axes.
+package pads an uneven shard, the port refuses it.
+
+Both together (``disp`` and ``space`` above 1, the JAX package's
+``_constrain_disp`` sharding a volume along its planes and its rows): each
+process holds one slab of the volumes' planes of its slab of rows.  A
+volume conv takes its halo along D over the disp group, then along H over
+the space group of the D-haloed slab, so the corner blocks come with the
+rows (``nn/layers.py``); the gathers of planes run within each row slab's
+disp group, and the top-k choice is broadcast from that group's first
+process.  Each world-wide sum above counts a pixel ``disp`` times, once
+per process of its disp group, and stays right by the disp rule: each
+process holds 1/disp of its rows' share.
 """
 
 from __future__ import annotations
@@ -296,17 +306,15 @@ def check_space_rows(height: int, space: int, model: ModelConfig | None = None) 
                              f"windows of {window[1]} rows do not tile")
 
 
-def check_parallel(cfg: ParallelConfig, world: int, model: ModelConfig | None = None) -> None:
+def check_parallel(cfg: ParallelConfig, world: int, model: ModelConfig | None = None,
+                   height: int | None = None) -> None:
     """Raises ``ValueError`` unless ``cfg`` describes ``data`` x ``disp`` x
-    ``space`` processes filling ``world`` (``data`` -1: the rest) with
-    ``disp`` or ``space`` at 1, and, given the model, each of its cost
-    volumes splits into ``disp`` slabs.  The rows' split depends on each
+    ``space`` processes filling ``world`` (``data`` -1: the rest) and, given
+    the model, each of its cost volumes splits into ``disp`` slabs; given a
+    ``height`` too, its rows split into ``space`` slabs by
+    ``check_space_rows``.  Without one, the rows' split depends on each
     batch's height, which the model's forward holds to
     ``check_space_rows``."""
-    if cfg.disp > 1 and cfg.space > 1:
-        raise ValueError(f"disp={cfg.disp} with space={cfg.space}: disparity and spatial "
-                         "parallelism together are not ported yet (the volume convs would "
-                         "take halos along two axes)")
     if not cfg.sync_bn:
         raise ValueError("sync_bn=False (per-process BatchNorm statistics) is not ported; "
                          "the data-parallel step takes global statistics, as the JAX "
@@ -315,6 +323,8 @@ def check_parallel(cfg: ParallelConfig, world: int, model: ModelConfig | None = 
     if model is not None:
         check_disp_planes(volume_planes(model.maxdisp, model.symmetric, model.topk,
                                         model.att_weights_only), cfg.disp)
+    if height is not None:
+        check_space_rows(height, cfg.space, model)
 
 
 def global_sum(x):
@@ -547,9 +557,12 @@ def gather_rows(x, mesh: Mesh, axis: int = 1):
 
 
 def broadcast_from_group(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """``t`` (no gradient) as the disp group's first process holds it."""
+    """``t`` (no gradient) as the disp group's first process holds it: the
+    global rank data_index * disp * space + space_index, which
+    ``dist.broadcast`` takes as ``src``."""
     t = t.contiguous().clone()
-    dist.broadcast(t, src=mesh.data_index * mesh.disp, group=mesh.disp_group)
+    dist.broadcast(t, src=mesh.data_index * mesh.disp * mesh.space + mesh.space_index,
+                   group=mesh.disp_group)
     return t
 
 

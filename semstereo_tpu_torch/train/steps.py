@@ -22,7 +22,12 @@ means' world-summed denominators count each pixel once and the sums give
 the global values as under data parallelism; the dice loss and the
 per-image metrics sum their spatial sums over the space group first
 (``losses.dice_loss``, ``metrics.py``), on the model's row mesh
-(``layers.rows_of``).
+(``layers.rows_of``).  Under both, a process holds distinct rows within
+its space group and the same rows as the rest of its disp group: the
+world-summed denominators count each pixel ``disp`` times, so each
+process's loss is 1/disp of its rows' share, the dice loss's world count
+of (image, class) pairs counts each pair disp x space times, and the
+world-wide sums of the gradients and scalars give the global values.
 """
 
 from __future__ import annotations

@@ -47,6 +47,12 @@ pixels.  For the ``--save-dir`` dumps the disparity (and label) rows are
 gathered over the group and the group's first process writes them, the
 files of one process; the TensorBoard image panel shows the logging
 process's slab of rows.
+
+Both (``disp`` and ``space`` above 1): the ``disp x space`` processes of
+a data group load the same rows and each keeps its slab of them.  The
+confusion matrices are counted by the processes of disp index 0, one for
+each row slab; the dumps are gathered over each space group and written by
+the process of disp index 0 and space index 0.
 """
 
 from __future__ import annotations

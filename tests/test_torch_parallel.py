@@ -134,6 +134,10 @@ def _worker():
     out["logdir"] = sorted(os.listdir(trainer.cfg.logdir))
     trainer.cfg = dataclasses.replace(trainer.cfg, eval_seg_per_batch=True)
     out["eval_per_batch"] = trainer.evaluate()
+    root = argv[argv.index("--datapath") + 1]
+    out["evaluate"] = cli_evaluate.main([  # --data-parallel -1: both processes
+        *EVAL_FLAGS, "--datapath", root, "--testlist", f"{root}/test.txt", "--loadckpt",
+        trainer.cfg.logdir, "--save-dir", os.path.join(os.environ["OUT_DIR"], "dump_dp")])
     torch.save(out, os.path.join(os.environ["OUT_DIR"], f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -307,6 +311,32 @@ def test_two_process_cli_epoch_equals_one_process(runs, tmp_path, capsys):
     assert float(diffs.median()) <= 0.25, float(diffs.median())
 
 
+def test_two_process_cli_evaluate_equals_one_process(runs, tmp_path):
+    """``cli.evaluate`` in the two processes (``--data-parallel`` -1: every
+    process, as the JAX package's evaluation takes every device) against
+    the one-process ``cli.evaluate`` of the same checkpoint and test list
+    at the same global batch of 2: the results within rtol 1e-5.  Its dump
+    (each process writes its shard's samples) is the one-process dump at
+    the processes' batch of 1, file for file and bit for bit; the
+    one-process dump at batch 2 rounds a few pixels otherwise (its convs
+    run at batch 2), one 1/256 px level at most (measured: 2-7 pixels of
+    each file)."""
+    args = [*EVAL_FLAGS, "--datapath", runs["root"], "--testlist", f"{runs['root']}/test.txt",
+            "--loadckpt", str(runs["tmp"] / "dp_run"), "--save-dir"]
+    want = cli_evaluate.main([*args, str(tmp_path / "dump_batch2")])
+    for rank in (0, 1):
+        _assert_eval_agrees(runs["ranks"][rank]["evaluate"], want)
+    cli_evaluate.main([*args, str(tmp_path / "dump_batch1"), "--batch-size", "1"])
+    dp_dump = str(runs["tmp"] / "dump_dp")
+    for one, levels in (("dump_batch1", 0), ("dump_batch2", 1)):
+        names = sorted(os.listdir(tmp_path / one))
+        assert names == sorted(os.listdir(dp_dump)) and len(names) == TEST_ROWS
+        for n in names:
+            a, b = (np.asarray(Image.open(os.path.join(d, n))).astype(np.int64)
+                    for d in (tmp_path / one, dp_dump))
+            assert np.abs(a - b).max() <= levels, (one, n)
+
+
 def test_two_process_per_batch_eval_equals_one_process(runs):
     """The eval with ``eval_seg_per_batch`` (each step's confusion matrix
     summed over the processes, then metered) on both processes against the
@@ -358,13 +388,12 @@ US3D = {stage: dict(maxdisp=64, topk=24, att_weights_only=stage == 1) for stage 
     (ParallelConfig(data=1, disp=4), 4, US3D[2], "/4 top-k concat"),
     (ParallelConfig(disp=2), 2, MODEL, "/8 cosine volume's 4 planes"),
     (ParallelConfig(disp=8), 8, US3D[1], "/8 cosine volume's 16 planes"),
-    (ParallelConfig(disp=2, space=2), 4, US3D[2], "spatial parallelism together are not "
-     "ported yet"),
+    (ParallelConfig(disp=4, space=2), 8, US3D[2], "/4 top-k concat volume's 24 planes"),
     (ParallelConfig(disp=3), 4, None, "disp=3 does not divide")])
 def test_check_parallel_refuses_what_does_not_split(parallel, world, model, match):
     """A disp whose slabs do not hold a multiple of 4 planes of each volume
-    (naming the volume), a disp split beside a spatial one, and a disp that
-    does not divide the processes."""
+    (naming the volume), beside a spatial split too, and a disp that does
+    not divide the processes."""
     with pytest.raises(ValueError, match=match):
         check_parallel(parallel, world, None if model is None else ModelConfig(**model))
 
@@ -373,12 +402,18 @@ def test_check_parallel_refuses_what_does_not_split(parallel, world, model, matc
     (ParallelConfig(disp=2), 2, US3D[2]), (ParallelConfig(disp=4), 4, US3D[1]),
     (ParallelConfig(data=2, disp=2), 4, US3D[2]),
     (ParallelConfig(disp=2), 2, dict(name="SemStereo_WHU", maxdisp=64)),
-    (ParallelConfig(data=-1, disp=2), 8, US3D[1])])
+    (ParallelConfig(data=-1, disp=2), 8, US3D[1]),
+    (ParallelConfig(disp=2, space=2), 4, US3D[2]),
+    (ParallelConfig(data=2, disp=2, space=2), 8, US3D[2]),
+    (ParallelConfig(data=-1, disp=2, space=2), 8, US3D[2])])
 def test_check_parallel_accepts_the_plane_count_table(parallel, world, model):
-    """data x disp = world for the disps of each volume's plane count: US3D
-    stage 2 (16 and 24 planes) at 1 and 2, stage 1 (16) at 1, 2 and 4, WHU
-    at maxdisp 64 (8 and 16) at 1 and 2."""
-    check_parallel(parallel, world, ModelConfig(**model))
+    """data x disp x space = world for the disps of each volume's plane
+    count: US3D stage 2 (16 and 24 planes) at 1 and 2, stage 1 (16) at 1, 2
+    and 4, WHU at maxdisp 64 (8 and 16) at 1 and 2; disp 2 beside space 2,
+    the JAX package's composed mesh (its multichip entry point's at 4 and
+    8 devices), its rows held to the height rules at 1024."""
+    check_parallel(parallel, world, ModelConfig(**model),
+                   1024 if parallel.space > 1 else None)
 
 
 # (space, height, model): the height rules of parallel.check_space_rows, each
