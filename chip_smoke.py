@@ -168,9 +168,11 @@
    process with K2 and K4 on 8 of the 16 planes of 16 of the 32 /8 rows;
    (b) the flagship request on 512 rows a process: in fp32 with every /4
    plane kept, every process's disparity within ``FUSE_FP32_BOUNDS`` of one
-   process's (a disp group's processes compute the same rows, but the
-   fp32 front end does not round alike in all of them: the largest
-   difference within a group is printed);
+   process's, and the processes of a disp group, which compute the same
+   rows, equal bit for bit under cuDNN's deterministic algorithms (its
+   default fp32 algorithm for the front end's 2-D transposed convs adds
+   with atomics, so that even one process's request does not repeat
+   itself bit for bit);
    in bf16, the gathered ``label_l`` and /8 attention volume within
    ``BF16_REL``, the stage-2 cost within ``SPACE_COST_REL`` on the pixels
    whose top-k choice equals one process's (at least ``SPACE_SAME_TOPK``),
@@ -200,14 +202,17 @@
    bf16-against-fp32 curves, on the tiny config (maxdisp 16, topk 4,
    windows (1, 2, 2), 32x32, batch 2, seg and LRSC losses, lr 1e-3): first
    each kernel call of one bf16 step (K1, K3's dw, K2, K4 at the tiny
-   shapes) against its plain version within ``REL_TOL``; then, from the
-   fp32 master of each seed of ``BF16_CURVE_SEEDS``, a curve in bf16, one
-   in fp32 and a second in fp32, over the 4 batches of 8 synthetic samples
-   in order, K1-K4 launched every step, each curve a process of its own on
-   the card (``chip_smoke.py --worker curve ...``, all at once), every
-   loss finite; JAX's bounds on the final 10 steps' mean losses
-   (``BF16_CURVE_REL``, ``BF16_CURVE_FALL``) printed for bf16 and for the
-   fp32 repeat against fp32, not held (``BF16_CURVE_SEEDS`` says why).
+   shapes) against its plain version within ``REL_TOL``, each of the four
+   called; then, from the fp32 master of ``BF16_CURVE_SEED``, a curve in
+   bf16, one in fp32 and a second in fp32, over the 4 batches of 8
+   synthetic samples in order, K1-K4 launched every step, each curve a
+   process of its own on the card in PyTorch's deterministic mode
+   (``chip_smoke.py --worker curve ...``, all at once), every loss finite:
+   the fp32 repeat's losses equal the fp32 curve's bit for bit, and JAX's
+   second bound holds, each curve's mean loss over its final 10 steps (its
+   tail) below ``BF16_CURVE_FALL`` of its first loss.  JAX's first bound,
+   the bf16 tail within ``BF16_CURVE_REL`` of the fp32 one, is printed and
+   not held (``BF16_CURVE_SEED`` says why).
 
 Prints one JSON line of per-kernel numbers, then, last, the ``ok`` line.
 Exits non-zero (and prints no result) without a CUDA device or outside the
@@ -380,17 +385,18 @@ DISP_SPACE_PLANE_BAND = 4
 # (tests/test_train_integration.py): steps, the tail whose mean loss is
 # compared, the largest relative gap of the two dtypes' tails, and the share
 # of its first loss that each curve's tail must fall below (JAX's bounds);
-# and the seeds of the fp32 masters.  On the card the tiny config's training
-# does not repeat itself from run to run, and a curve may stall
-# on a plateau for a hundred steps or not: on the H100, seed 1's bf16/fp32
-# tail ratio came to 1.21 in one run of this phase and 1.00 in another, and
-# seed 2's bf16 curve stalled (ratio 1.53) where its seed-1 and seed-3
-# curves did not (PERF.md section 6).  So JAX's bounds, set for one
-# deterministic TPU run, are printed for bf16 beside an fp32 repeat of the
-# same seed, the card's own spread, and do not fail the phase.
+# and the seed of the fp32 master, the config's default, as in the JAX
+# test.  On the card a train step repeats itself only in PyTorch's
+# deterministic mode (the scatter-adds of the gathers' backward, cuDNN's
+# algorithms), which the curves' processes run in, with an fp32 repeat
+# that must equal the fp32 curve bit for bit.  JAX's first bound is not
+# held: on the H100 in deterministic mode, seed 1's bf16 tail is 0.874
+# times its fp32 one, and over seeds 1-5 the tails move by about 8 % with
+# the seed, three of the ten curves (either dtype) stalling on a plateau
+# near a loss of 10 for a hundred steps (PERF.md section 6).
 BF16_CURVE_STEPS, BF16_CURVE_TAIL = 200, 10
 BF16_CURVE_REL, BF16_CURVE_FALL = 0.10, 0.2
-BF16_CURVE_SEEDS = (1, 2, 3)
+BF16_CURVE_SEED = 1
 # K4 at the main path's shape at the train batch: features [2, 128, 128, 256].
 K4_SHAPE = ((TRAIN_BATCH, 128, 128, 256), 32, 8)
 # K4 at symmetric plane counts above one launch's slab, the smallest that
@@ -2228,7 +2234,9 @@ def disp_space_worker(out_path: str, cli_argv: list[str]) -> None:
     del model
     model = seeded_model(every_plane(PRESETS["us3d_stage2"]), seed=0, mesh=mesh).to(device)
     left, right = (row_slab(t, mesh).to(device) for t in stereo_pair(1024, 8, 0))
+    torch.backends.cudnn.deterministic = True
     res["eval_fp32_1024"] = model(left, right)["disp"][0].cpu()
+    torch.backends.cudnn.deterministic = False
     del model
     # (d)
     res["train_1024"] = train_1024_step(ops, device, mesh)
@@ -2384,9 +2392,9 @@ def run_disp_space_parallel(ops, tmp: str, train: dict, refs: dict, space: dict)
             sl != ({"K2": 16 // DISP, "K4": 0}, {"K2": 128 // SPACE, "K4": 0}) for sl in slabs):
         failures.append("disp=2 x space=2 eval launches, planes or rows")
     if not (fp32_1024.median() <= FUSE_FP32_BOUNDS["median"]
-            and fp32_1024.max() <= FUSE_FP32_BOUNDS["max"]):
+            and fp32_1024.max() <= FUSE_FP32_BOUNDS["max"] and fp32_group == 0):
         failures.append("the disp=2 x space=2 fp32 1024x1024 eval's disparity disagrees with "
-                        "one process's")
+                        "one process's, or within a disp group")
     if not bf16_split <= SPACE_BF16_LEVEL * bf16_level:
         failures.append(f"the disp=2 x space=2 bf16 disparity is {bf16_split} px from one "
                         f"process's (median), beyond {SPACE_BF16_LEVEL} x the bf16 level "
@@ -2531,11 +2539,13 @@ def curve_batches() -> list:
 
 def curve_worker(out_path: str, dtype: str, seed: str) -> None:
     """One curve of the bf16 curves phase: ``BF16_CURVE_STEPS`` steps of
-    the tiny config in ``dtype`` from the fp32 master of ``seed``; the
+    the tiny config in ``dtype`` from the fp32 master of ``seed``, in PyTorch's
+    deterministic mode (``CUBLAS_WORKSPACE_CONFIG`` set by the caller); the
     losses and the launches go to ``out_path``."""
     from semstereo_tpu_torch import ops
     from semstereo_tpu_torch.train import init_state, make_train_step
 
+    torch.use_deterministic_algorithms(True)
     cfg = curve_cfg(dtype, int(seed))
     batches = curve_batches()
     state = init_state(cfg)
@@ -2588,20 +2598,20 @@ def held_against_plain(records: list):
 def run_bf16_curves(ops) -> dict:
     """bf16 against fp32 over many steps (docstring, item 15): each kernel
     call of one bf16 step of the tiny config against its plain version
-    (``REL_TOL``); then, for each seed of ``BF16_CURVE_SEEDS``, curves of
-    ``BF16_CURVE_STEPS`` steps from the seed's fp32 master over the 4
-    batches of 8 synthetic samples in order, in bf16, in fp32 and in fp32
-    again (the card's own spread), each a process of its own
-    (``chip_smoke.py --worker curve ...``, all at once), every step
-    launching ``TRAIN_LAUNCHES`` and every loss finite.  JAX's two bounds
-    (the mean bf16 tail within ``BF16_CURVE_REL`` of the mean fp32 tail,
-    each tail below ``BF16_CURVE_FALL`` of its first loss) are computed and
-    printed beside the fp32 repeat's, and do not fail the phase: see
-    ``BF16_CURVE_SEEDS``."""
+    (``REL_TOL``), every one of the four called; then curves of
+    ``BF16_CURVE_STEPS`` steps from the fp32 master of ``BF16_CURVE_SEED``
+    over the 4 batches of 8 synthetic samples in order, in bf16, in fp32
+    and in fp32 again, each a process of its own in PyTorch's deterministic
+    mode (``chip_smoke.py --worker curve ...``, all at once), every step
+    launching ``TRAIN_LAUNCHES`` and every loss finite; the fp32 repeat
+    equal to the fp32 curve bit for bit; each tail (the mean of the last
+    ``BF16_CURVE_TAIL`` losses) below ``BF16_CURVE_FALL`` of its first
+    loss.  The bf16 tail's ratio to the fp32 one is printed beside JAX's
+    ``BF16_CURVE_REL``."""
     from semstereo_tpu_torch.train import init_state, make_train_step
 
     failures, records = [], []
-    cfg = curve_cfg("bfloat16", BF16_CURVE_SEEDS[0])
+    cfg = curve_cfg("bfloat16", BF16_CURVE_SEED)
     state = init_state(cfg)
     with held_against_plain(records):
         make_train_step(cfg)(state, curve_batches()[0])
@@ -2609,42 +2619,43 @@ def run_bf16_curves(ops) -> dict:
     for name, shape, err in records:
         key = f"{name} {shape}"
         worst[key] = max(worst.get(key, 0.0), err)
-    if not records or max(worst.values()) > REL_TOL[torch.bfloat16]:
+    missing = {"K1", "K3-dw", "K2", "K4"} - {name for name, _, _ in records}
+    if missing:
+        failures.append(f"the tiny bf16 step called no {sorted(missing)}")
+    elif max(worst.values()) > REL_TOL[torch.bfloat16]:
         failures.append(f"a kernel disagrees with its plain version at the tiny step: {worst}")
     del state
     script = os.path.abspath(__file__)
-    kinds = (("float32", "float32"), ("float32_repeat", "float32"), ("bfloat16", "bfloat16"))
-    runs = [(kind, dt, seed) for seed in BF16_CURVE_SEEDS for kind, dt in kinds]
+    runs = ("float32", "float32_repeat", "bfloat16")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        spawn([([script, "--worker", "curve", f"{tmp}/curve{i}.pt", dt, str(seed)], {})
-               for i, (_, dt, seed) in enumerate(runs)], DP_TIMEOUT)
+        spawn([([script, "--worker", "curve", f"{tmp}/{kind}.pt", kind.split("_")[0],
+                 str(BF16_CURVE_SEED)], {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+               for kind in runs], DP_TIMEOUT)
         wall = time.perf_counter() - t0
-        curves = [torch.load(f"{tmp}/curve{i}.pt") for i in range(len(runs))]
-    res = {"kernel_vs_plain_max_rel": worst, "wall_s": wall, "curves": []}
-    tails, falls = {kind: [] for kind, _ in kinds}, []
-    for (kind, dt, seed), c in zip(runs, curves):
+        curves = {kind: torch.load(f"{tmp}/{kind}.pt") for kind in runs}
+    res = {"kernel_vs_plain_max_rel": worst, "seed": BF16_CURVE_SEED, "wall_s": wall,
+           "curves": {}}
+    tails = {}
+    for kind, c in curves.items():
         losses = c["losses"]
-        tail = statistics.mean(losses[-BF16_CURVE_TAIL:])
-        tails[kind].append(tail)
-        falls.append(tail / losses[0])
-        res["curves"].append(dict(kind=kind, seed=seed, first=losses[0], last=losses[-1],
-                                  tail_mean=tail, every_20=losses[::20], s=c["s"],
-                                  launches=c["launches"]))
+        tails[kind] = statistics.mean(losses[-BF16_CURVE_TAIL:])
+        res["curves"][kind] = dict(first=losses[0], last=losses[-1], tail_mean=tails[kind],
+                                   fall=tails[kind] / losses[0], every_20=losses[::20],
+                                   s=c["s"], launches=c["launches"])
         if c["launches"] != {k: v * BF16_CURVE_STEPS for k, v in TRAIN_LAUNCHES.items()}:
-            failures.append(f"{kind} seed {seed} curve launches {c['launches']}")
+            failures.append(f"{kind} curve launches {c['launches']}")
         if not all(np.isfinite(losses)):
-            failures.append(f"non-finite {kind} losses at seed {seed}")
-    f32 = tails["float32"]
-    res["tail_ratio_per_seed"] = {kind: [t / f for t, f in zip(tails[kind], f32)]
-                                  for kind in ("bfloat16", "float32_repeat")}
-    res["tail_ratio"] = {kind: statistics.mean(tails[kind]) / statistics.mean(f32)
-                         for kind in ("bfloat16", "float32_repeat")}
-    res["jax_bounds"] = dict(
-        tail_rel=BF16_CURVE_REL, fall=BF16_CURVE_FALL, largest_fall=max(falls),
-        bf16_tail_within=abs(res["tail_ratio"]["bfloat16"] - 1.0) < BF16_CURVE_REL,
-        fp32_repeat_tail_within=abs(res["tail_ratio"]["float32_repeat"] - 1.0) < BF16_CURVE_REL,
-        every_curve_fell=max(falls) < BF16_CURVE_FALL)
+            failures.append(f"non-finite {kind} losses")
+        elif tails[kind] >= BF16_CURVE_FALL * losses[0]:
+            failures.append(f"the {kind} curve's tail {tails[kind]} is not below "
+                            f"{BF16_CURVE_FALL} of its first loss {losses[0]}")
+    res["fp32_repeats_bitwise"] = curves["float32_repeat"]["losses"] == curves["float32"]["losses"]
+    if not res["fp32_repeats_bitwise"]:
+        failures.append("the fp32 curve does not repeat itself in deterministic mode")
+    res["tail_ratio"] = tails["bfloat16"] / tails["float32"]
+    res["jax_tail_bound"] = dict(rel=BF16_CURVE_REL, held=False,
+                                 within=abs(res["tail_ratio"] - 1.0) < BF16_CURVE_REL)
     log("bf16_curves", json.dumps(res))
     if failures:
         raise AssertionError("; ".join(failures))

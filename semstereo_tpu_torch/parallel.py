@@ -306,15 +306,12 @@ def check_space_rows(height: int, space: int, model: ModelConfig | None = None) 
                              f"windows of {window[1]} rows do not tile")
 
 
-def check_parallel(cfg: ParallelConfig, world: int, model: ModelConfig | None = None,
-                   height: int | None = None) -> None:
+def check_parallel(cfg: ParallelConfig, world: int, model: ModelConfig | None = None) -> None:
     """Raises ``ValueError`` unless ``cfg`` describes ``data`` x ``disp`` x
     ``space`` processes filling ``world`` (``data`` -1: the rest) and, given
-    the model, each of its cost volumes splits into ``disp`` slabs; given a
-    ``height`` too, its rows split into ``space`` slabs by
-    ``check_space_rows``.  Without one, the rows' split depends on each
-    batch's height, which the model's forward holds to
-    ``check_space_rows``."""
+    the model, each of its cost volumes splits into ``disp`` slabs.  The
+    rows' split depends on each batch's height, which the model's forward
+    holds to ``check_space_rows``."""
     if not cfg.sync_bn:
         raise ValueError("sync_bn=False (per-process BatchNorm statistics) is not ported; "
                          "the data-parallel step takes global statistics, as the JAX "
@@ -323,8 +320,6 @@ def check_parallel(cfg: ParallelConfig, world: int, model: ModelConfig | None = 
     if model is not None:
         check_disp_planes(volume_planes(model.maxdisp, model.symmetric, model.topk,
                                         model.att_weights_only), cfg.disp)
-    if height is not None:
-        check_space_rows(height, cfg.space, model)
 
 
 def global_sum(x):

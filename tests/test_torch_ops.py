@@ -51,6 +51,22 @@ def test_resize_trilinear(src, dst):
     _close(resize.resize_trilinear(torch.from_numpy(x), dst), jres.resize_trilinear(x, dst))
 
 
+@pytest.mark.parametrize("kind,src,dst", [
+    ("bilinear", (4, 6), (8, 12)), ("bilinear", (5, 7), (20, 28)), ("bilinear", (3, 3), (7, 5)),
+    ("trilinear", (4, 4, 6), (8, 16, 24)), ("trilinear", (2, 3, 5), (4, 12, 20))])
+def test_resize_backward(kind, src, dst):
+    """The resize's fixed-order backward, which the card's resizes take (its
+    adjoint, one axis at a time), against the VJP of JAX's resize."""
+    x = _rand(2, (2, *src, 3))
+    gy = _rand(3, (2, *dst, 3))
+    xt = torch.from_numpy(x).requires_grad_()
+    channels_first = (0, x.ndim - 1, *range(1, x.ndim - 1))
+    y = resize._Resize.apply(xt.permute(channels_first), dst, kind)
+    y.backward(torch.from_numpy(gy).permute(channels_first))
+    _, vjp = jax.vjp(lambda a: getattr(jres, f"resize_{kind}")(a, dst), jnp.asarray(x))
+    _close(xt.grad, vjp(jnp.asarray(gy))[0], REDUCE)
+
+
 # --- regression -------------------------------------------------------------
 
 

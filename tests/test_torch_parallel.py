@@ -412,8 +412,9 @@ def test_check_parallel_accepts_the_plane_count_table(parallel, world, model):
     and 4, WHU at maxdisp 64 (8 and 16) at 1 and 2; disp 2 beside space 2,
     the JAX package's composed mesh (its multichip entry point's at 4 and
     8 devices), its rows held to the height rules at 1024."""
-    check_parallel(parallel, world, ModelConfig(**model),
-                   1024 if parallel.space > 1 else None)
+    check_parallel(parallel, world, ModelConfig(**model))
+    if parallel.space > 1:
+        check_space_rows(1024, parallel.space, ModelConfig(**model))
 
 
 # (space, height, model): the height rules of parallel.check_space_rows, each
