@@ -1,0 +1,10 @@
+"""The conv3d layer's share of its roofline in eval cells: the least time
+of its calls in the traced window (``work.py``) over the device time of
+the operations launched inside them."""
+
+
+def read(s: dict):
+    layer = s.get("layers", {}).get("conv3d")
+    if s.get("mode") != "eval" or not layer or layer["kernel_s"] <= 0:
+        return None
+    return 100.0 * layer["bound_s"] / layer["kernel_s"]

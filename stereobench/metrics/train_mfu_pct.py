@@ -1,0 +1,9 @@
+"""The train step's share of the card's bf16 peak: the reference's forward
+and backward convolution and matrix-product operations per pair times the
+pairs per second of the window before the trace, over the peak."""
+
+
+def read(s: dict):
+    if s.get("mode") != "train" or not s.get("model_flop_per_pair"):
+        return None
+    return 100.0 * s["model_flop_per_pair"] * s["rate_pairs_per_s"] / s["peak_flops"]
