@@ -1263,7 +1263,7 @@ def run_fuse_views(ops, cpu_model) -> dict:
     ``FUSE_FP32_BOUNDS``.  Then one
     profiled request of each for its total kernel launches and device
     time."""
-    from semstereo_tpu_torch.profile_eval import profiled
+    from stereobench.tracing import Tracer, summarize
 
     model = copy.deepcopy(cpu_model).to("cuda", PATH_DTYPE)
     left, right = (t.to("cuda", PATH_DTYPE) for t in stereo_pair(1024, 8, seed=0))
@@ -1309,14 +1309,13 @@ def run_fuse_views(ops, cpu_model) -> dict:
                disp=disp_stats(outs["fused"]["disp"][0].float().cpu(),
                                outs["two_pass"]["disp"][0].float().cpu()),
                launches_per_request={k: v // (2 * FUSE_REQUESTS) for k, v in launches.items()})
-    with tempfile.TemporaryDirectory() as tmp:
-        for mode, fuse in modes.items():
-            model.fuse_views = fuse
-            prof = profiled(lambda: model(left, right), 1, tmp)
-            res[mode] = dict(ms_per_pair=times[mode],
-                             ms_per_pair_median=statistics.median(times[mode]),
-                             kernel_launches_per_request=prof["kernel_launches_per_run"],
-                             device_busy_ms=prof["device_busy_ms_per_run"])
+    for mode, fuse in modes.items():
+        model.fuse_views = fuse
+        prof = summarize(Tracer().profile(lambda: model(left, right), 1), {}, 1)
+        res[mode] = dict(ms_per_pair=times[mode],
+                         ms_per_pair_median=statistics.median(times[mode]),
+                         kernel_launches_per_request=prof["kernels"],
+                         device_busy_ms=1e3 * prof["busy_s"])
     log("fuse_views", json.dumps(res))
     if not all(torch.isfinite(o["disp"][0]).all() for o in outs.values()):
         raise AssertionError("non-finite disparity")

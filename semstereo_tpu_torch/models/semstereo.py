@@ -77,6 +77,7 @@ import torch.nn as nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from semstereo_tpu_torch import trace
 from semstereo_tpu_torch.config import CHANS, CHANS2
 from semstereo_tpu_torch.nn import (
     BasicConv,
@@ -257,13 +258,15 @@ class SemStereo(nn.Module):
 
     def forward(self, left, right):
         """left, right [B, H, W, 3] -> dict (see the module docstring)."""
-        if self.training:
-            return self._forward(left, right)
-        with torch.inference_mode():
-            return self._forward(left, right)
+        with trace.span("forward"):
+            if self.training:
+                return self._forward(left, right)
+            with torch.inference_mode():
+                return self._forward(left, right)
 
     def _front(self, x):
-        return self._call("featup", self.feature_up, self._call("backbone", self.feature, x))
+        with trace.span("front"):
+            return self._call("featup", self.feature_up, self._call("backbone", self.feature, x))
 
     def _forward(self, left, right):
         train = self.training
@@ -306,47 +309,48 @@ class SemStereo(nn.Module):
         # stage 1: cosine GWC attention volume at /8 (this process's slab
         # of its planes under a mesh)
         mesh = self.mesh
-        groups = CHANS2[2] // 8
-        d8 = self.maxdisp // 8 * (2 if self.symmetric else 1)
-        p8, n8 = mesh.slab(d8) if mesh is not None else (0, None)
-        corr = gwc_volume_norm(fl[2].contiguous(), fr2.contiguous(), self.maxdisp // 8, groups,
-                               self.symmetric, p8, n8)  # [B, D8, H8, W8, G]
-        corr = conv_cl(self.patch, corr)
-        cost_att = self.corr_feature_att_8(corr, fl[2])
-        cost_att = self._call("hourglass", self.hourglass_att, cost_att, mesh=mesh)
-        cost_att = self.classif_att_(cost_att, mesh=mesh)
-        if mesh is not None:
-            cost_att = gather_planes(cost_att, mesh)
+        with trace.span("stage1"):
+            groups = CHANS2[2] // 8
+            d8 = self.maxdisp // 8 * (2 if self.symmetric else 1)
+            p8, n8 = mesh.slab(d8) if mesh is not None else (0, None)
+            corr = gwc_volume_norm(fl[2].contiguous(), fr2.contiguous(), self.maxdisp // 8, groups,
+                                   self.symmetric, p8, n8)  # [B, D8, H8, W8, G]
+            corr = conv_cl(self.patch, corr)
+            cost_att = self.corr_feature_att_8(corr, fl[2])
+            cost_att = self._call("hourglass", self.hourglass_att, cost_att, mesh=mesh)
+            cost_att = self.classif_att_(cost_att, mesh=mesh)
+            if mesh is not None:
+                cost_att = gather_planes(cost_att, mesh)
 
-        d4 = self.maxdisp // 4 * (2 if self.symmetric else 1)
-        h4, w4 = left.shape[1] // 4, left.shape[2] // 4
-        att_weights = resize_trilinear(cost_att, (d4, h4, w4), rows)[..., 0]  # [B, D4, H4, W4]
-        att_prob_full = torch.softmax(att_weights, dim=1)
-        pred_att = disparity_regression(att_prob_full, self.symmetric)
+            d4 = self.maxdisp // 4 * (2 if self.symmetric else 1)
+            h4, w4 = left.shape[1] // 4, left.shape[2] // 4
+            att_weights = resize_trilinear(cost_att, (d4, h4, w4), rows)[..., 0]  # [B, D4, H4, W4]
+            att_prob_full = torch.softmax(att_weights, dim=1)
+            pred_att = disparity_regression(att_prob_full, self.symmetric)
 
-        var = disparity_variance(att_prob_full, pred_att, self.symmetric)
-        conf = torch.sigmoid(self.beta[0] + self.gamma[0] * var)
-        conf_samples = propagate5(conf, rows)
-        disp_samples = propagate5(pred_att, rows)
+            var = disparity_variance(att_prob_full, pred_att, self.symmetric)
+            conf = torch.sigmoid(self.beta[0] + self.gamma[0] * var)
+            conf_samples = propagate5(conf, rows)
+            disp_samples = propagate5(pred_att, rows)
 
-        if self.symmetric:
-            min_off, max_off = -(d4 // 2), d4 // 2
-        else:
-            min_off, max_off = -d4, 0
-        strength = warp_strength(fl[1], fr1, disp_samples, max_off, min_off)
-        strength = torch.softmax(strength * conf_samples, dim=1)
+            if self.symmetric:
+                min_off, max_off = -(d4 // 2), d4 // 2
+            else:
+                min_off, max_off = -d4, 0
+            strength = warp_strength(fl[1], fr1, disp_samples, max_off, min_off)
+            strength = torch.softmax(strength * conf_samples, dim=1)
 
-        att_weights = propagate5_volume(att_weights, rows)  # [B, 5, D4, H4, W4]
-        att_weights = torch.sum(att_weights * strength[:, :, None], dim=1)
+            att_weights = propagate5_volume(att_weights, rows)  # [B, 5, D4, H4, W4]
+            att_weights = torch.sum(att_weights * strength[:, :, None], dim=1)
 
-        k = min(self.topk, d4)
-        ind = topk_plane_indices(att_weights, k)
-        if mesh is not None:  # one choice of planes for the group's slabs, a byte each
-            ind = broadcast_from_group(ind.to(torch.uint8 if d4 <= 256 else torch.int32),
-                                       mesh).long()
-        att_topk, att_raw, samples = topk_planes(att_weights, k, self.symmetric, ind)
-        att_prob = torch.softmax(att_raw, dim=1)
-        pred_att = torch.sum(att_prob * samples, dim=1)
+            k = min(self.topk, d4)
+            ind = topk_plane_indices(att_weights, k)
+            if mesh is not None:  # one choice of planes for the group's slabs, a byte each
+                ind = broadcast_from_group(ind.to(torch.uint8 if d4 <= 256 else torch.int32),
+                                           mesh).long()
+            att_topk, att_raw, samples = topk_planes(att_weights, k, self.symmetric, ind)
+            att_prob = torch.softmax(att_raw, dim=1)
+            pred_att = torch.sum(att_prob * samples, dim=1)
         if self.att_weights_only or train:
             pred_att_up = self.ssr_upsample(pred_att[..., None], spx_pred, pred_label)
         if self.att_weights_only:
@@ -355,34 +359,35 @@ class SemStereo(nn.Module):
 
         # stage 2: top-k sampled concat volume at /4 (this process's slab of
         # the k planes under a mesh)
-        samples_k, att_k = samples, att_topk
-        if mesh is not None:
-            pk, nk = mesh.slab(k)
-            samples_k, att_k = samples[:, pk:pk + nk], att_topk[:, pk:pk + nk]
-        if fuse:
-            cc = self.concat_feature(torch.cat([fl[1], fr1]))
-            lc, rc = cc[:b], cc[b:]
-        else:
-            lc = self._call("concat", self.concat_feature, fl[1])
-            rc = self._call("concat", self.concat_feature, fr1)
-        warped_rc, tiled_lc = warp_with_left(lc, rc, samples_k)
-        # att * concat(tiled left, warped right): [B, K, H4, W4, 64]; eval
-        # writes it in place, which autograd cannot follow
-        if train:
-            volume = att_k[..., None] * torch.cat([tiled_lc, warped_rc], dim=-1)
-        else:
-            c = lc.shape[-1]
-            volume = torch.empty((*warped_rc.shape[:-1], 2 * c), dtype=lc.dtype,
-                                 device=lc.device)
-            torch.mul(att_k[..., None], tiled_lc, out=volume[..., :c])
-            torch.mul(att_k[..., None], warped_rc, out=volume[..., c:])
-        volume = self.concat_stem(volume, mesh=mesh)
-        volume = self.concat_feature_att_4(volume, fl[1])
-        cost = self._call("hourglass", self.hourglass, volume, mesh=mesh)
-        cost = self.classif(cost, mesh=mesh)[..., 0]
-        if mesh is not None:
-            cost = gather_planes(cost, mesh)
-        pred = regression_topk(cost, samples, self.refine_topk)
+        with trace.span("stage2"):
+            samples_k, att_k = samples, att_topk
+            if mesh is not None:
+                pk, nk = mesh.slab(k)
+                samples_k, att_k = samples[:, pk:pk + nk], att_topk[:, pk:pk + nk]
+            if fuse:
+                cc = self.concat_feature(torch.cat([fl[1], fr1]))
+                lc, rc = cc[:b], cc[b:]
+            else:
+                lc = self._call("concat", self.concat_feature, fl[1])
+                rc = self._call("concat", self.concat_feature, fr1)
+            warped_rc, tiled_lc = warp_with_left(lc, rc, samples_k)
+            # att * concat(tiled left, warped right): [B, K, H4, W4, 64]; eval
+            # writes it in place, which autograd cannot follow
+            if train:
+                volume = att_k[..., None] * torch.cat([tiled_lc, warped_rc], dim=-1)
+            else:
+                c = lc.shape[-1]
+                volume = torch.empty((*warped_rc.shape[:-1], 2 * c), dtype=lc.dtype,
+                                     device=lc.device)
+                torch.mul(att_k[..., None], tiled_lc, out=volume[..., :c])
+                torch.mul(att_k[..., None], warped_rc, out=volume[..., c:])
+            volume = self.concat_stem(volume, mesh=mesh)
+            volume = self.concat_feature_att_4(volume, fl[1])
+            cost = self._call("hourglass", self.hourglass, volume, mesh=mesh)
+            cost = self.classif(cost, mesh=mesh)[..., 0]
+            if mesh is not None:
+                cost = gather_planes(cost, mesh)
+            pred = regression_topk(cost, samples, self.refine_topk)
         pred_up = self.ssr_upsample(pred[..., None], spx_pred, pred_label)
         if train:
             out["disp"] = (pred_up * 4, pred * 4, pred_att_up * 4, pred_att * 4)

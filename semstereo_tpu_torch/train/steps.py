@@ -35,7 +35,7 @@ from __future__ import annotations
 import torch
 from torch.func import functional_call
 
-from semstereo_tpu_torch import losses, metrics
+from semstereo_tpu_torch import losses, metrics, trace
 from semstereo_tpu_torch.config import TrainConfig
 from semstereo_tpu_torch.nn.layers import rows_of
 from semstereo_tpu_torch.parallel import all_reduce_grads, all_reduce_scalars
@@ -133,8 +133,10 @@ def make_grads_fn(cfg: TrainConfig):
         for i in range(accum):
             mb = {k: v[i * n // accum:(i + 1) * n // accum] for k, v in batch.items()}
             out = _apply(model, cfg, mb["left"], mb["right"])
-            total, aux, mask = assemble_train_loss(cfg, out, mb, rows_of(model))
-            (total / accum).backward()
+            with trace.span("loss"):
+                total, aux, mask = assemble_train_loss(cfg, out, mb, rows_of(model))
+            with trace.span("backward"):
+                (total / accum).backward()
             auxs.append({k: v.detach() for k, v in aux.items()})
             outs.append({k: tuple(t.detach() for t in v) if isinstance(v, tuple) else v.detach()
                          for k, v in out.items()})
@@ -164,17 +166,19 @@ def make_train_step(cfg: TrainConfig):
     grads_fn = make_grads_fn(cfg)
 
     def train_step(state: TrainState, batch):
-        model = state.model.train()
-        device = next(model.parameters()).device
-        batch = {k: v.to(device) for k, v in batch.items()}
-        state.optimizer.zero_grad(set_to_none=True)
-        aux, out, mask = grads_fn(model, batch)
-        all_reduce_grads(model.parameters())
-        if cfg.optim.grad_clip > 0:
-            _clip_by_global_norm(model.parameters(), cfg.optim.grad_clip)
-        state.optimizer.step()
-        return all_reduce_scalars(dict(aux, **_disp_metrics(
-            out["disp"][0], _display_gt(batch["disparity"]), mask, rows_of(model))))
+        with trace.span("step"):
+            model = state.model.train()
+            device = next(model.parameters()).device
+            batch = {k: v.to(device) for k, v in batch.items()}
+            state.optimizer.zero_grad(set_to_none=True)
+            aux, out, mask = grads_fn(model, batch)
+            with trace.span("optimizer"):
+                all_reduce_grads(model.parameters())
+                if cfg.optim.grad_clip > 0:
+                    _clip_by_global_norm(model.parameters(), cfg.optim.grad_clip)
+                state.optimizer.step()
+            return all_reduce_scalars(dict(aux, **_disp_metrics(
+                out["disp"][0], _display_gt(batch["disparity"]), mask, rows_of(model))))
 
     return train_step
 
