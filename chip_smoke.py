@@ -308,9 +308,9 @@ REMAT_WARM, REMAT_TIMED = 1, 3
 REMAT_LAUNCHES = {"full": dict(TRAIN_LAUNCHES, **{"K1-s1": 22, "K1-s2": 8}),
                   "featup": TRAIN_LAUNCHES}
 # The fuse_views phase: requests of each front end, interleaved, and the
-# modules that run on the stacked views when fused.
+# modules after the front end that run on the stacked views when fused.
 FUSE_REQUESTS = 10
-FUSE_MODULES = ("feature_up", "chal_1", "chal_2", "concat_feature")
+FUSE_MODULES = ("chal_1", "chal_2", "concat_feature")
 # The fp32 fused request's disparity against the two-pass one's (TF32 off),
 # in px.  Every /4 plane is kept by both top-k stages (topk = refine_topk =
 # the plane count), so the forward has no hard choice: at the eval path's
@@ -1230,9 +1230,11 @@ def run_remat(ops, train: dict) -> dict:
 
 
 def front_end_outputs(model, left, right) -> dict:
-    """One request's labels and the outputs of the modules that
-    ``fuse_views`` runs on the stacked views (``FUSE_MODULES``), each as
-    [left views; right views] along the batch."""
+    """One request's labels, the outputs of the modules after the front
+    end that ``fuse_views`` runs on the stacked views (``FUSE_MODULES``),
+    and the front end's pyramid (``SemStereo._fronts``, as ``feature_up``:
+    a replayed front end runs no module hook), each as [left views; right
+    views] along the batch."""
     seen = {name: [] for name in FUSE_MODULES}
     hooks = [getattr(model, n).register_forward_hook(
         lambda mod, args, out, n=n: seen[n].append(out)) for n in FUSE_MODULES]
@@ -1243,11 +1245,11 @@ def front_end_outputs(model, left, right) -> dict:
             h.remove()
     res = {k: out[k] for k in ("label_l", "label_r")}
     for name, outs in seen.items():  # two-pass: [left, right]; fused: [both]
-        if isinstance(outs[0], list):  # the feature pyramid, level by level
-            for i in range(len(outs[0])):
-                res[f"{name}[{i}]"] = torch.cat([o[i] for o in outs])
-        else:
-            res[name] = torch.cat(outs)
+        res[name] = torch.cat(outs)
+    with torch.inference_mode():
+        _, feat_l, feat_r = model._fronts(left, right, bool(model.fuse_views))
+    for i, level in enumerate(zip(feat_l, feat_r)):
+        res[f"feature_up[{i}]"] = torch.cat(level)
     return res
 
 

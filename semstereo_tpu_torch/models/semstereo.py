@@ -20,6 +20,22 @@ stacks the two views into one batch through ``feature``, ``feature_up``,
 ``chal_1``, ``chal_2`` and ``concat_feature`` (BatchNorm uses its running
 statistics there, so the result is the two-pass one).  Train ignores it.
 
+On the card, eval runs the front end of both views (both passes, or the
+one stacked pass with ``fuse_views``) as one CUDA graph when the model is
+whole (no ``mesh``, no row split), both views are CUDA tensors of one
+shape and dtype, and no capture is under way (``_front_graphable``).  The
+graph's key is the views' shape, strides, dtype and device,
+``fuse_views``, and the identity, storage and version of every parameter
+and buffer of ``feature`` and ``feature_up`` (what ``layers.derived``
+keys the folded BatchNorm on); the model keeps one ``_FrontGraph``, of
+the newest key.  A key's first forward runs eagerly, its second warms up
+on a side stream and captures, and later ones copy the views into the
+graph's inputs and replay it.  So weights that change between forwards
+(a load, an optimizer step, ``.to()``, the fresh casts that the train
+state's bf16 eval hands to ``functional_call``) keep the front end eager
+instead of capturing it every time.  ``train()`` drops the graph and its
+memory.  A replay runs no forward hook of the front end's modules.
+
 ``remat`` recomputes the chosen components' forwards in the backward
 instead of keeping their activations (``remat_components``), each under
 ``torch.utils.checkpoint`` (non-reentrant).  The checkpointed function
@@ -71,6 +87,7 @@ the stage-2 plane slab is cut from the row slab's choice.
 from __future__ import annotations
 
 import contextlib
+import weakref
 
 import torch
 import torch.nn as nn
@@ -143,6 +160,58 @@ def _checkpointed(module: nn.Module, *args, **kwargs):
 
     return checkpoint(run, *args, *tensors, use_reentrant=False,
                       context_fn=lambda: (contextlib.nullcontext(), recomputing()))
+
+
+class _FrontGraph:
+    """A key of the eval front end (module docstring) and, from the key's
+    second forward on, its capture: the graph, its static inputs and output
+    pyramids, and the tensors it reads by address."""
+
+    def __init__(self, modules, fuse, left, right):
+        self.modules = modules  # (feature, feature_up)
+        self.dicts = [d for m in modules for sub in m.modules()
+                      for d in (sub._parameters, sub._buffers) if d]
+        self.key = self._key(fuse, left, right)
+        self.refs = [weakref.ref(t) for t in self._tensors()]
+        self.graph = self.inputs = self.outputs = self.keep = None
+
+    def _tensors(self):
+        return [t for d in self.dicts for t in d.values() if t is not None]
+
+    def _key(self, fuse, left, right):
+        return (fuse, left.shape, left.stride(), right.stride(), left.dtype, left.device,
+                *((t.data_ptr(), t._version) for t in self._tensors()))
+
+    def holds(self, modules, fuse, left, right) -> bool:
+        """Whether a forward on ``left``, ``right`` has this key."""
+        return (modules == self.modules and self._key(fuse, left, right) == self.key
+                and all(r() is t for r, t in zip(self.refs, self._tensors())))
+
+    def capture(self, run, left, right) -> None:
+        """Warms ``run`` up on a side stream (cuDNN's choices, the folds of
+        ``layers.derived``, the stream's cuBLAS workspace), then captures
+        it there on copies of the views."""
+        self.inputs = (torch.empty_like(left), torch.empty_like(right))
+        for dst, src in zip(self.inputs, (left, right)):
+            dst.copy_(src)
+        stream = torch.cuda.current_stream(left.device)
+        side = torch.cuda.Stream(left.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            run(*self.inputs)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            self.outputs = run(*self.inputs)
+        stream.wait_stream(side)
+        self.graph = graph
+        self.keep = (self._tensors(), [sub.__dict__["_derived"] for m in self.modules
+                                       for sub in m.modules() if "_derived" in sub.__dict__])
+
+    def replay(self, left, right):
+        for dst, src in zip(self.inputs, (left, right)):
+            dst.copy_(src)
+        self.graph.replay()
+        return self.outputs
 
 
 class FeatUp(nn.Module):
@@ -264,9 +333,62 @@ class SemStereo(nn.Module):
             with torch.inference_mode():
                 return self._forward(left, right)
 
+    def train(self, mode: bool = True):
+        """``nn.Module.train``; train mode drops the front end's graph and
+        returns its memory pool."""
+        slot = self.__dict__.pop("_front_graph", None) if mode else None
+        if slot is not None and slot.graph is not None:
+            del slot
+            torch.cuda.empty_cache()
+        return super().train(mode)
+
+    def _front_pass(self, x):
+        return self._call("featup", self.feature_up, self._call("backbone", self.feature, x))
+
     def _front(self, x):
         with trace.span("front"):
-            return self._call("featup", self.feature_up, self._call("backbone", self.feature, x))
+            return self._front_pass(x)
+
+    def _front_graphable(self, left, right) -> bool:
+        """Whether the front end may run as a CUDA graph (module docstring)."""
+        return (not self.training and torch.is_inference_mode_enabled() and self.mesh is None
+                and rows_of(self) is None and left.is_cuda and right.device == left.device
+                and right.shape == left.shape and right.dtype == left.dtype
+                and not torch.cuda.is_current_stream_capturing())
+
+    def _front_graphed(self, left, right, fuse):
+        """The front end's outputs from the graph of this forward's key,
+        captured first at the key's second forward; None at its first."""
+        modules = (self.feature, self.feature_up)
+        slot = self.__dict__.get("_front_graph")
+        if slot is None or not slot.holds(modules, fuse, left, right):
+            self.__dict__["_front_graph"] = _FrontGraph(modules, fuse, left, right)
+            return None
+        with trace.span("front"):
+            if slot.graph is None:
+                trace.count("front_capture")
+                slot.capture(lambda l, r: self._front_views(self._front_pass, l, r, fuse), left,
+                             right)
+            else:
+                trace.count("front_replay")
+            return slot.replay(left, right)
+
+    @staticmethod
+    def _front_views(front, left, right, fuse):
+        return (front(torch.cat([left, right])),) if fuse else (front(left), front(right))
+
+    def _fronts(self, left, right, fuse):
+        """The front end of both views: (the stacked pyramid with ``fuse``,
+        else None; the left pyramid; the right pyramid).  ``trace`` counts
+        each forward's front end as replayed, captured or eager."""
+        outs = self._front_graphed(left, right, fuse) if self._front_graphable(left, right) else None
+        if outs is None:
+            trace.count("front_eager")
+            outs = self._front_views(self._front, left, right, fuse)
+        if not fuse:
+            return None, *outs
+        b = left.shape[0]
+        return outs[0], [f[:b] for f in outs[0]], [f[b:] for f in outs[0]]
 
     def _forward(self, left, right):
         train = self.training
@@ -275,13 +397,7 @@ class SemStereo(nn.Module):
             check_space_rows(left.shape[1] * rows.space, rows.space, self)
         b = left.shape[0]
         fuse = bool(self.fuse_views) and not train
-        if fuse:
-            feats = self._front(torch.cat([left, right]))
-            feat_l = [f[:b] for f in feats]
-            feat_r = [f[b:] for f in feats]
-        else:
-            feat_l = self._front(left)
-            feat_r = self._front(right)
+        feats, feat_l, feat_r = self._fronts(left, right, fuse)
         out = {}
         if self.seg_if:
             pred_label = self.head_l(feat_l[0])

@@ -6,11 +6,13 @@ backward and optimizer.
     trace.enable()
     ...                  # eval requests or train steps
     trace.totals()       # {"front": {"count", "host_s", "self_host_s", "device_s"}, ...}
+    trace.counts()       # {"front_replay": n, ...}
     trace.reset()
 
-``span(name)`` is the only call the program makes.  The record is off by
-default, and then ``span`` reads two flags (this module's and the
-profiler's) and returns one shared null context.  It is on after
+``span(name)`` and ``count(name)`` are the calls the program makes.  The
+record is off by default, and then ``span`` reads two flags (this
+module's and the profiler's) and returns one shared null context, and
+``count`` reads the same two flags and does nothing.  It is on after
 ``enable()`` until ``disable()``, and by itself while a ``torch.profiler``
 session records.  An open span keeps in memory its name, its host start
 and end (``time.perf_counter_ns``), its parent (the span open around it)
@@ -23,11 +25,14 @@ while that stream captures a graph); under the profiler it opens
 clock beside the kernels it launches.
 
 The spans the program opens (``models/semstereo.py``,
-``train/steps.py``): ``forward``, ``front`` (once per view in two passes,
-once when the views are fused), ``stage1``, ``stage2``, ``step``,
-``loss``, ``backward`` (every microbatch) and ``optimizer``.  They are
-opened from the thread that runs the forward and the step; autograd's
-threads open none.
+``train/steps.py``): ``forward``, ``front`` (eagerly once per view in two
+passes and once when the views are fused; once per forward when the
+front end's CUDA graph is captured or replayed), ``stage1``, ``stage2``,
+``step``, ``loss``, ``backward`` (every microbatch) and ``optimizer``.
+They are opened from the thread that runs the forward and the step;
+autograd's threads open none.  The counters (``models/semstereo.py``):
+``front_replay``, ``front_capture`` and ``front_eager``, one per
+forward, by how its front end ran.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ class _Record:
         self.requests = 0
         self.events: list = []
         self.events_used = 0
+        self.counts: dict[str, int] = {}
 
     def event(self):
         if self.events_used == len(self.events):
@@ -121,6 +127,12 @@ def span(name: str):
     return _Span(name)
 
 
+def count(name: str) -> None:
+    """Adds one to the counter ``name`` while the record is on."""
+    if _enabled or _profiler._is_profiler_enabled:
+        _record.counts[name] = _record.counts.get(name, 0) + 1
+
+
 def enable() -> None:
     """Record spans from now on, with or without a profiler."""
     global _enabled
@@ -141,11 +153,17 @@ def reset() -> None:
     _record.dropped = 0
     _record.requests = 0
     _record.events_used = 0
+    _record.counts.clear()
 
 
 def dropped() -> int:
     """Spans not kept since the last reset, the record being full."""
     return _record.dropped
+
+
+def counts() -> dict:
+    """The counters since the last reset, by name."""
+    return dict(_record.counts)
 
 
 def spans() -> list[dict]:
